@@ -9,12 +9,18 @@ has an obvious counterpart.
 
 The package imports ``torch`` and numpy only — never ``jax`` and never
 ``andix``.  The device-free host modules (fasta, sequence, model, output,
-runtime, esa.joint, chain.events, chain.segmented, chain.replay_py) are
-verbatim copies of ``andix``'s, held equal by ``tests/test_torch_cli.py``.
+runtime, esa.joint, esa.sa_numpy, chain.events, chain.segmented,
+chain.replay_py, and the numpy half of esa.subject_index) are verbatim
+copies of ``andix``'s, held equal by the tests.
 
-Slice 1 is the joint schedule: CLI -> joint block -> SA/LCP -> matching
-statistics (flag-scan kernel) -> subject tables -> segmented chain walk
-(walk kernel) -> host counting -> estimators -> PHYLIP.
+Two schedules, picked by ``ANDIX_INDEX`` as in ``andix``:
+
+* joint (slice 1): CLI -> joint block -> SA/LCP -> matching statistics
+  (flag-scan kernel) -> subject tables -> segmented chain walk (walk
+  kernel) -> host counting -> estimators -> PHYLIP;
+* subject index (slice 2): CLI -> per-subject index (SA, LCP, packed
+  words, k-mer cache) -> segmented search walk (search-walk kernel) ->
+  host counting -> estimators -> PHYLIP.
 """
 
 __version__ = "0.1.0"

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -77,6 +78,28 @@ def chain_walk_flat(isa, rm, mlun, ps, lanes: dict, max_iters: int,
                                      max_events, ecap, chase, unroll)
     return _chain_walk_flat_cuda(isa, rm, mlun, ps, lanes, max_iters,
                                  max_events, ecap, chase, unroll)
+
+
+def fetch_walk(out):
+    """Either walk's outputs -> the (ev [4, cnt] lane/q/s/len, state [4, Lb]
+    pos/lq/ls/ll, fin, iters, ovf) tuple the segmented driver consumes:
+    one readback of the exit state with (ev_cnt, ovf, iters) riding along,
+    then the events (none after an overflow)."""
+    (ev_lane, ev_q, ev_s, ev_len, ev_cnt, ovf, iters,
+     pos, lq, ls, ll, fin) = out
+    lb = pos.shape[0]
+    meta = torch.stack([x.to(pos.device, torch.int32)
+                        for x in (ev_cnt, ovf, iters)])
+    h = torch.cat([torch.stack([pos, lq, ls, ll, fin.to(torch.int32)])
+                   .reshape(-1), meta]).cpu().numpy()
+    state_h = h[: 5 * lb].reshape(5, lb)
+    cnt, ovf_h, iters_h = (int(x) for x in h[5 * lb:])
+    if ovf_h:
+        return (np.zeros((4, 0), np.int32), state_h[:4],
+                state_h[4].astype(bool), iters_h, True)
+    ev = torch.stack([ev_lane[:cnt], ev_q[:cnt], ev_s[:cnt],
+                      ev_len[:cnt]]).cpu().numpy()
+    return ev, state_h[:4], state_h[4].astype(bool), iters_h, False
 
 
 def _check(name, t, dtype, device, dim=1):

@@ -23,7 +23,7 @@ import torch
 from ..chain import events as chain_events
 from ..chain import segmented
 from ..chain.replay_device import (
-    LANE_FIELDS, chain_walk_flat, group_subject_tables,
+    LANE_FIELDS, chain_walk_flat, fetch_walk, group_subject_tables,
 )
 from ..model import CountMatrix
 from . import doubling, lcp as lcp_mod, matchstats, rmq
@@ -267,21 +267,11 @@ class TorchBackend:
             nonlocal overflowed
             lanes = {name: torch.from_numpy(arr[name]).to(dev)
                      for name in LANE_FIELDS}
-            out = chain_walk_flat(ctx.isa, ctx.rm, mlun, ps, lanes,
-                                  chunk_iters, maxev, ecap, CHASE, UNROLL)
-            (ev_lane, ev_q, ev_s, ev_len, ev_cnt, ovf, iters,
-             pos, lq, ls, ll, fin) = out
-            state = torch.stack([pos, lq, ls, ll, fin.to(torch.int32)])
-            state_h = state.cpu().numpy()
-            cnt, ovf_h, iters_h = (int(ev_cnt), bool(ovf), int(iters))
-            if ovf_h:
-                overflowed = True
-                return (np.zeros((4, 0), np.int32), state_h[:4],
-                        state_h[4].astype(bool), iters_h, True)
-            ev = torch.stack([ev_lane[:cnt], ev_q[:cnt], ev_s[:cnt],
-                              ev_len[:cnt]]).cpu().numpy()
-            return (ev, state_h[:4], state_h[4].astype(bool), iters_h,
-                    False)
+            res = fetch_walk(chain_walk_flat(ctx.isa, ctx.rm, mlun, ps, lanes,
+                                             chunk_iters, maxev, ecap, CHASE,
+                                             UNROLL))
+            overflowed |= res[4]
+            return res
 
         def prof_msg(msg):
             nonlocal t0

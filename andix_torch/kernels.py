@@ -1,14 +1,17 @@
 """Build, load and count the hand-written kernels in ``csrc/``.
 
-Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` of the
-``.cu`` files into one shared library with a plain C interface, loaded
-with ctypes (every pointer and the stream as ``c_void_p``).  The build
-runs at first use, from the sources in this checkout, into the
-git-ignored ``_build/`` directory — nothing is compiled at import.
+Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3`` of each ``.cu``
+file to an object, all started together, then one ``nvcc -shared`` link
+into a shared library with a plain C interface, loaded with ctypes
+(every pointer and the stream as ``c_void_p``).  The build runs at first
+use, from the sources in this checkout, into the git-ignored ``_build/``
+directory — nothing is compiled at import.  Editing any source or any
+header under ``csrc/`` rebuilds.
 
-``cpu_twin()`` builds the walk kernel's per-lane body (``walk_lane.cuh``)
-with g++ into a small host library, so the kernel's logic can be held to
-the JAX walk on a machine without a card.
+``cpu_twin()`` builds the walk kernels' per-lane bodies
+(``walk_lane.cuh``, ``walk_sx_lane.cuh``) with g++ into a small host
+library, so the kernels' logic can be held to the JAX walks on a machine
+without a card.
 
 ``launches`` counts, per kernel wrapper, the calls that launched the
 kernel on the card (the plain versions never count).
@@ -17,6 +20,7 @@ kernel on the card (the plain versions never count).
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -25,11 +29,14 @@ import tempfile
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-CUDA_SOURCES = ("flag_scan.cu", "chain_walk.cu")
+CUDA_SOURCES = ("flag_scan.cu", "chain_walk.cu", "walk_sx.cu")
+CPU_TWIN_SOURCES = ("walk_cpu.cpp", "walk_sx_cpu.cpp")
 CUDA_LIB = os.path.join(BUILD_DIR, "libandix_torch_cuda.so")
 CPU_TWIN_LIB = os.path.join(BUILD_DIR, "libandix_torch_walk_cpu.so")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC"]
 
-launches = {"flag_scan": 0, "chain_walk_flat": 0}
+launches = {"flag_scan": 0, "chain_walk_flat": 0, "chain_walk_flat_sx": 0}
 
 _cuda_lib = None
 _cpu_twin = None
@@ -40,6 +47,11 @@ _cpu_twin = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _WALK_ARGTYPES = ([_P] * 8 + [_I] * 3 + [_P, _P, ctypes.c_int64] + [_P] * 11
                   + [_I] * 6 + [_P] * 10)
+# andix_chain_walk_sx's (walk_sx_lane.cuh, walk_sx.cu): the index and query
+# word pointers, their sizes and cache_k, lane arrays, scalar budgets, then
+# the output buffers; the CUDA entry adds the stream
+_SX_ARGTYPES = ([_P] * 5 + [ctypes.c_int64] * 3 + [_I] + [_P] * 9 + [_I] * 5
+                + [_P] * 10)
 
 
 def reset_launches() -> None:
@@ -59,39 +71,64 @@ def _nvcc() -> str:
 
 
 def _stale(lib: str, sources: list[str]) -> bool:
+    """True when ``lib`` is missing or older than one of ``sources`` or of
+    any header under ``csrc/``."""
     if not os.path.exists(lib):
         return True
     t = os.path.getmtime(lib)
-    return any(os.path.getmtime(s) > t for s in sources)
+    deps = sources + glob.glob(os.path.join(CSRC, "*.cuh"))
+    return any(os.path.getmtime(s) > t for s in deps)
+
+
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the compiler's output if
+    one fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        if p.returncode:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+
+
+def _tmp(suffix: str) -> str:
+    fd, path = tempfile.mkstemp(suffix=suffix, dir=BUILD_DIR)
+    os.close(fd)
+    return path
 
 
 def _compile(cmd_head: list[str], sources: list[str], lib: str) -> None:
     """Run ``cmd_head + [-o tmp] + sources`` and move the result into
     place atomically (parallel processes may build at once)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmp = _tmp(".so")
     try:
-        subprocess.run(cmd_head + ["-o", tmp] + sources, check=True,
-                       capture_output=True, text=True)
-    except subprocess.CalledProcessError as e:
+        _run([cmd_head + ["-o", tmp] + sources])
+    except RuntimeError:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"kernel build failed: {' '.join(e.cmd)}\n{e.stderr}"
-        ) from e
+        raise
     os.replace(tmp, lib)
 
 
 def build_cuda() -> str:
-    """Compile the CUDA kernels for sm_90a; returns the library path."""
+    """Compile the CUDA kernels for sm_90a, one nvcc per source, all at
+    once, and link them; returns the library path."""
     sources = [os.path.join(CSRC, s) for s in CUDA_SOURCES]
-    headers = [os.path.join(CSRC, "walk_lane.cuh")]
-    if _stale(CUDA_LIB, sources + headers):
-        _compile(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"],
-            sources, CUDA_LIB,
-        )
+    if _stale(CUDA_LIB, sources):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = _nvcc()
+        objs = [_tmp(".o") for _ in sources]
+        try:
+            _run([[nvcc] + _NVCC_FLAGS + ["-c", src, "-o", obj]
+                  for src, obj in zip(sources, objs)])
+            _compile([nvcc] + _NVCC_FLAGS + ["-shared"], objs, CUDA_LIB)
+        finally:
+            for obj in objs:
+                os.unlink(obj)
     return CUDA_LIB
 
 
@@ -105,6 +142,8 @@ def cuda_lib():
         lib.andix_flag_scan.restype = _I
         lib.andix_chain_walk_flat.argtypes = _WALK_ARGTYPES + [_P]
         lib.andix_chain_walk_flat.restype = _I
+        lib.andix_chain_walk_sx.argtypes = _SX_ARGTYPES + [_P]
+        lib.andix_chain_walk_sx.restype = _I
         lib.andix_cuda_error_string.argtypes = [_I]
         lib.andix_cuda_error_string.restype = ctypes.c_char_p
         _cuda_lib = lib
@@ -119,15 +158,17 @@ def check(err: int, name: str) -> None:
 
 
 def cpu_twin():
-    """The walk kernel's lane body built for the host with g++."""
+    """The walk kernels' lane bodies built for the host with g++."""
     global _cpu_twin
     if _cpu_twin is None:
-        src = os.path.join(CSRC, "walk_cpu.cpp")
-        if _stale(CPU_TWIN_LIB, [src, os.path.join(CSRC, "walk_lane.cuh")]):
+        sources = [os.path.join(CSRC, s) for s in CPU_TWIN_SOURCES]
+        if _stale(CPU_TWIN_LIB, sources):
             _compile(["g++", "-std=c++17", "-O2", "-shared", "-fPIC"],
-                     [src], CPU_TWIN_LIB)
+                     sources, CPU_TWIN_LIB)
         lib = ctypes.CDLL(CPU_TWIN_LIB)
         lib.andix_chain_walk_flat_cpu.argtypes = _WALK_ARGTYPES
         lib.andix_chain_walk_flat_cpu.restype = _I
+        lib.andix_chain_walk_sx_cpu.argtypes = _SX_ARGTYPES
+        lib.andix_chain_walk_sx_cpu.restype = _I
         _cpu_twin = lib
     return _cpu_twin

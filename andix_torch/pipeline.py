@@ -1,12 +1,20 @@
-"""Distance-matrix pipeline, joint schedule (counterpart of
-``andix/pipeline.py``).
+"""Distance-matrix pipeline (counterpart of ``andix/pipeline.py``).
 
-Subjects are grouped into *blocks*; per block (and per query chunk) one
-joint suffix array over the block's subject strings and the remaining
-query strings is built on the device, every subject's matching
-statistics come from flag scans over it, and the anchor chains are
-walked per (subject, query-segment) lane.  Low-memory mode (``-l``) is
-single-subject blocks — a different schedule with byte-identical output.
+Two schedules with byte-identical output, picked by ``ANDIX_INDEX``
+(``auto``, ``subject`` or ``joint``):
+
+* the joint schedule: subjects are grouped into *blocks*; per block (and
+  per query chunk) one joint suffix array over the block's subject
+  strings and the remaining query strings is built on the device, every
+  subject's matching statistics come from flag scans over it, and the
+  anchor chains are walked per (subject, query-segment) lane;
+* the subject-index schedule (``subject_pipeline``): one index per
+  subject, every query streamed past it through the search walk.
+
+``auto`` keeps ``andix``'s rule: the subject index when the joint plan
+has more than one block or chunks its queries.  Rows the subject index
+cannot finish go to the joint schedule.  Low-memory mode (``-l``) is
+single-subject blocks or index groups.
 
 Checkpoint rows (``TileCheckpoint``) keep ``andix``'s format 3 and
 fingerprint, so a row written by either package resumes under the other.
@@ -270,8 +278,8 @@ def calculate_matrix(
     progress: ProgressMeter | None = None,
 ) -> list[list[CountMatrix]]:
     """Fill the full n×n count-matrix grid (reference
-    ``calculate_distances`` compute phase, src/process.c:230-251) with the
-    joint schedule on ``backend`` (an ``esa.backend.TorchBackend``)."""
+    ``calculate_distances`` compute phase, src/process.c:230-251) on
+    ``backend``'s device (an ``esa.backend.TorchBackend``)."""
     block_syms = block_syms if block_syms is not None else ctx.block_syms
     n = len(seqs)
     subjects = [subject_init(s, ctx.anchor_p_value) for s in seqs]
@@ -306,6 +314,24 @@ def calculate_matrix(
         todo = remaining
     if not todo:
         return M
+
+    mode = os.environ.get("ANDIX_INDEX", "auto")
+    if mode == "auto":
+        probe_blocks = make_blocks(
+            [subjects[i] for i in todo], block_syms, False,
+            query_base=max_query_syms,
+        )
+        query_total = sum(s.len + 1 for s in seqs)
+        use_sx = len(probe_blocks) > 1 or query_total > max_query_syms
+    else:
+        use_sx = mode == "subject"
+    if use_sx:
+        from .subject_pipeline import process_subject_index
+
+        todo = process_subject_index(todo, seqs, subjects, ctx, M, progress,
+                                     ckpt, backend.device)
+        if not todo:
+            return M
 
     blocks = [
         [todo[k] for k in blk]

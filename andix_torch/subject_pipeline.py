@@ -1,0 +1,323 @@
+"""Subject-index schedule: build each subject's index once, stream every
+query through the search-in-the-loop chain walk (counterpart of
+``andix/subject_pipeline.py``).
+
+andi's own design — one index per subject, queries streamed past it
+(src/esa.c:254-277, src/dist_hack.h:64-68):
+
+* query text is never sorted; it lives on the device only as 4-bit
+  packed words,
+* each subject's SA + LCP is built once per run, not once per joint block
+  and query chunk,
+* no ``[Sg, QB]`` match-statistics tables.
+
+Subjects are grouped so that the group's resident index (SA + LCP +
+words + k-mer caches), one build's transients and the walk's buffers fit
+the device's memory budget (``pipeline.memory_budget``); each group walks
+all of its (subject, query) pairs through the segmented driver
+(``chain.segmented``, exact splicing) over
+``chain.walk_sx.chain_walk_flat_sx``, and the 16-cell counts come from the
+same host event counting as the joint schedule (``chain.events``), so the
+output is byte-identical across schedules.
+
+A group the schedule cannot finish goes back to the caller, which runs
+it on the joint schedule: after an event-buffer overflow the group is
+walked again with a 4x larger buffer, at most twice; when the segmented
+resolve does not converge it goes back at once (a larger buffer would not
+change the walk).  One device, no threads.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from .chain import events as chain_events
+from .chain import segmented
+from .chain.replay_device import fetch_walk
+from .chain.walk_sx import SX_LANE_FIELDS, chain_walk_flat_sx
+from .esa import joint, subject_index
+from .esa.backend import bucket, pad_symbols, prof
+from .model import CountMatrix
+from .runtime import Context
+
+# resident device bytes per padded index symbol: SA 4 + LCP 4 + words 0.5
+IDX_BYTES_PER_SYM = 8.5
+# peak device bytes per padded index symbol while one subject's index
+# builds (the padded text, prefix-doubling sorts and rank levels, then the
+# LCP level walk, codes and words), over what the group already holds;
+# the k-mer histogram and its prefix sums add four cache sizes.  Measured
+# on an H100 80GB HBM3 (700 W): 4 + 82 B for the text and the SA + LCP
+# stage of a random 5 Mbp genome, which needs 5 rank levels (PERF.md).
+# Each further level adds 4 B, and real genomes' repeats (rRNA operons,
+# insertion sequences, a few kbp) need up to about 13 levels: 118 B.
+BUILD_BYTES_PER_PADDED_SYM = 128
+
+
+def plan_groups(subjects, todo, low_memory: bool, cache_k: int,
+                budget: int, fixed_bytes: int) -> list[list[int]]:
+    """Pack subject indices into groups whose resident index (rows padded
+    to a multiple of 8, each at the group's largest padded length), one
+    build's transients and ``fixed_bytes`` (query words, event buffers)
+    fit ``budget``.  ``ANDIX_GROUP_SUBJECTS`` caps the subjects per group
+    (default 16, 0 = no cap): rows checkpoint when their group completes."""
+    if low_memory:
+        return [[i] for i in todo]
+    cap = int(os.environ.get("ANDIX_GROUP_SUBJECTS", "16"))
+    cache_bytes = ((1 << (2 * cache_k)) + 1) * 4
+
+    def need(count: int, lp: int) -> float:
+        rows = -(-count // 8) * 8
+        return (rows * (lp * IDX_BYTES_PER_SYM + cache_bytes)
+                + lp * BUILD_BYTES_PER_PADDED_SYM + 4 * cache_bytes
+                + fixed_bytes)
+
+    groups: list[list[int]] = []
+    cur: list[int] = []
+    cur_lp = 0
+    for i in todo:
+        lp = max(cur_lp, index_length(subjects[i]))
+        if cur and (need(len(cur) + 1, lp) > budget
+                    or (cap and len(cur) >= cap)):
+            groups.append(cur)
+            cur = []
+            lp = index_length(subjects[i])
+        cur.append(i)
+        cur_lp = lp
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def index_length(subject) -> int:
+    """Padded length of a subject's index text, RS + one separator
+    (``Subject.len`` is the RS length).  ``andix`` pads to
+    ``bucket(2 * len + 2)``, twice the text; the walk never reads past the
+    real text, so the shorter padding changes no output."""
+    return bucket(subject.len + 1)
+
+
+def _build_group_index(group, subjects, cache_k: int, device):
+    """Stacked device index of one subject group, rows padded to a
+    multiple of 8: (salcp int32[S, 2, Lp], sw int64[S, Lp / 16], cache2
+    int32[S, 4^k + 1], nreal int32[S]).  Padding rows have nreal 1 and
+    no lanes."""
+    rows = -(-len(group) // 8) * 8
+    lp = max(index_length(subjects[i]) for i in group)
+    salcp = torch.zeros((rows, 2, lp), dtype=torch.int32, device=device)
+    sw = torch.zeros((rows, lp // 16), dtype=torch.int64, device=device)
+    cache2 = torch.zeros((rows, (1 << (2 * cache_k)) + 1),
+                         dtype=torch.int32, device=device)
+    nreal = np.ones(rows, dtype=np.int32)
+    for k, i in enumerate(group):
+        layout = joint.build_block({i: subjects[i].rs}, {})
+        nreal[k] = layout.n
+        sym = torch.from_numpy(pad_symbols(layout.sym, lp)).to(device)
+        sa, lcp, words, cache = subject_index.build_subject_index(
+            sym, layout.n, cache_k)
+        salcp[k, 0] = sa
+        salcp[k, 1] = lcp
+        sw[k] = words
+        cache2[k] = cache
+        del sym, sa, lcp, words, cache
+    return salcp, sw, cache2, torch.from_numpy(nreal).to(device)
+
+
+LANE_TARGET = int(os.environ.get("ANDIX_LANE_TARGET", "8192"))
+
+
+def _chain_segments(max_qlen: int, lanes_base: int) -> int:
+    """Segments per lane: the walk iteration's price is a ~0.4-0.9 ms
+    FIXED gather-launch term that is nearly lane-count-independent (a
+    32k-lane dependent gather costs only ~2x a 512-lane one,
+    MICROBENCH_SX.json lane sweep), so K scales the lane count toward
+    ~LANE_TARGET, bounded by a minimum segment length (reconciliation
+    overhead) and K <= 128."""
+    env = os.environ.get("ANDIX_CHAIN_SEGMENTS", "auto")
+    if env != "auto":
+        return max(1, min(int(env), max(max_qlen, 1)))
+    if max_qlen < 1 << 17:
+        return 1
+    k = 1
+    while (
+        k < 128
+        and lanes_base * (k * 2) <= LANE_TARGET
+        and max_qlen // (k * 2) >= 4096
+    ):
+        k *= 2
+    return max(1, min(k, max(max_qlen, 1)))
+
+
+def cache_depth(subjects, n_todo: int, budget: int) -> int:
+    """k-mer cache depth: ``ANDIX_CACHE_K``, else ``pick_cache_k`` with all
+    caches together in at most an eighth of the memory budget."""
+    env = os.environ.get("ANDIX_CACHE_K")
+    if env:
+        return int(env)
+    # andix's input to the cache depth, kept so both packages pick one k
+    max_len = max(s.len * 2 + 2 for s in subjects)
+    return subject_index.pick_cache_k(max_len, n_todo, budget // 8)
+
+
+def _event_cap(total_q: int) -> int:
+    """Event-buffer slots of one walk chunk (16 B each): ``ANDIX_EVENT_CAP``
+    (any positive value), else half the padded query total, within
+    [2^16, 2^25]."""
+    env = os.environ.get("ANDIX_EVENT_CAP")
+    if env:
+        return int(env)
+    return min(max(1 << 16, bucket(total_q + 1) // 2), 1 << 25)
+
+
+def process_subject_index(todo: list[int], seqs, subjects, ctx: Context, M,
+                          progress, ckpt, device) -> list[int]:
+    """Run the subject-index schedule for the ``todo`` subject rows on
+    ``device``; returns the rows it could not complete, for the caller's
+    joint schedule."""
+    from .pipeline import memory_budget
+
+    n = len(seqs)
+    total_q = sum(s.len + 1 for s in seqs)
+    if total_q + 16 >= 1 << 31:
+        # the packed query blob is int32-addressed; larger runs keep the
+        # joint schedule, which chunks queries
+        return list(todo)
+    budget = memory_budget(device)
+    cache_k = cache_depth(subjects, len(todo), budget)
+
+    raw_blob, q_off, qw_base = _host_query_blob(seqs, n)
+    gp = max(8, -(-n // 8) * 8)
+    q_len_row = np.zeros(gp, dtype=np.int32)
+    qw_base_pad = np.zeros(gp, dtype=np.int32)
+    q_len_row[:n] = (q_off[1:] - q_off[:-1]).astype(np.int32)
+    qw_base_pad[:n] = qw_base
+    q_off_pad = np.full(gp + 1, q_off[-1], dtype=np.int64)
+    q_off_pad[: n + 1] = q_off
+    ecap = _event_cap(int(q_off[-1]))
+
+    t0 = time.time()
+    qw = _pack_query_words(raw_blob, q_off, n, device)
+    prof("sx: query words H2D", t0, device)
+
+    leftovers: list[int] = []
+    groups = plan_groups(subjects, todo, ctx.low_memory, cache_k, budget,
+                         qw.numel() * 8 + 16 * ecap)
+    for group in groups:
+        if not _process_group(group, qw, subjects, ctx, M, progress, ckpt,
+                              cache_k, ecap, n, gp, q_len_row, qw_base_pad,
+                              q_off, q_off_pad, raw_blob, device):
+            leftovers.extend(group)
+    return leftovers
+
+
+def _host_query_blob(seqs, n):
+    q_off = np.zeros(n + 1, dtype=np.int64)
+    qw_base = np.zeros(n, dtype=np.int32)
+    pos = 0
+    for g in range(n):
+        q_off[g + 1] = q_off[g] + len(seqs[g].data)
+        qw_base[g] = pos
+        pos += len(seqs[g].data) + 1
+    raw = np.concatenate(
+        [np.asarray(seqs[g].data, dtype=np.uint8) for g in range(n)]
+    ) if n else np.zeros(0, np.uint8)
+    return raw, q_off, qw_base
+
+
+def _pack_query_words(raw_blob, q_off, n, device) -> torch.Tensor:
+    """Sentinel-injected packed query words on ``device``: each query is
+    followed by one sentinel (code 0), and the blob by at least 16 more."""
+    parts = []
+    for g in range(n):
+        parts.append(raw_blob[q_off[g]: q_off[g + 1]])
+        parts.append(np.zeros(1, np.uint8))
+    blob2 = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    pad = (-len(blob2)) % 16 + 16
+    blob2 = np.concatenate([blob2, np.zeros(pad, np.uint8)])
+    return subject_index.pack_words_u8(torch.from_numpy(blob2).to(device))
+
+
+def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
+                   ecap, n, gp, q_len_row, qw_base_pad, q_off, q_off_pad,
+                   raw_blob, device) -> bool:
+    """Build, walk and count one subject group and publish its rows;
+    False when the group goes back to the joint schedule."""
+    t0 = time.time()
+    salcp, sw, cache2, nreal = _build_group_index(group, subjects, cache_k,
+                                                  device)
+    sg = salcp.shape[0]
+    t0 = prof(f"sx: index build ({len(group)} subj)", t0, device)
+
+    rs_lens = np.ones(sg, dtype=np.int32)
+    thresholds = np.full(sg, 2**29, dtype=np.int32)
+    q_len2d = np.zeros((sg, gp), dtype=np.int32)
+    for k, i in enumerate(group):
+        rs_lens[k] = subjects[i].len
+        thresholds[k] = subjects[i].threshold
+        q_len2d[k] = q_len_row
+        q_len2d[k, i] = 0  # diagonal pair skipped
+    seg_k = _chain_segments(
+        int(q_len_row.max()) if n else 0, len(group) * max(n - 1, 1)
+    )
+
+    overflowed = False
+
+    def walk(arr, chunk_iters, maxev):
+        nonlocal overflowed
+        # the driver's query start ("qs") is the lane's base in qw symbols
+        lanes = {name: torch.from_numpy(arr["qs" if name == "qwb" else name])
+                 .to(device) for name in SX_LANE_FIELDS}
+        res = fetch_walk(chain_walk_flat_sx(
+            salcp, sw, cache2, nreal, qw, lanes, chunk_iters, maxev,
+            cache_k, ecap_now,
+        ))
+        overflowed |= res[4]
+        return res
+
+    def prof_msg(msg):
+        nonlocal t0
+        t0 = prof("sx: " + msg, t0, device)
+
+    ecap_now = ecap
+    for escalation in range(3):
+        overflowed = False
+        res = segmented.segmented_group_anchors(
+            walk, sg, gp, 0, np.zeros(sg, np.int32), rs_lens, thresholds,
+            qw_base_pad, qw_base_pad, q_len2d, seg_k, ecap_now,
+            prof_msg if os.environ.get("ANDIX_PROF_FILE") else None,
+        )
+        if res is not None:
+            break
+        if not overflowed or escalation == 2:
+            # the resolve did not converge (a wider buffer would walk the
+            # same way), or the buffer still overflowed
+            return False
+        ecap_now *= 4
+    del salcp, sw, cache2
+    lanes, ev_q, ev_s, ev_len = res
+
+    t0 = time.time()
+    subjects_rs = [subjects[i].rs for i in group] + [None] * (sg - len(group))
+    counts_h = chain_events.group_counts_from_events(
+        lanes, ev_q, ev_s, ev_len, sg, gp, subjects_rs, thresholds,
+        raw_blob, q_off_pad, ctx.model, ctx.threads,
+    )
+    prof(f"sx: host count from {ev_q.shape[0]} events", t0)
+
+    for k, i in enumerate(group):
+        row = {}
+        for g in range(n):
+            if g == i:
+                continue
+            seq_len = int(q_off[g + 1] - q_off[g])
+            row[g] = CountMatrix(counts_h[k, g].copy(), seq_len)
+        for g, cm in row.items():
+            M[i][g] = cm
+        if progress is not None:
+            progress.advance(len(row))
+        if ckpt is not None:
+            ckpt.save_row(i, n, row)
+    return True

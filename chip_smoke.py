@@ -1,23 +1,38 @@
-"""Drive andix_torch's joint-schedule main path once on one CUDA card.
+"""Drive andix_torch's two schedules once on one CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Phases, one
 line each; any failed phase raises and the script exits non-zero:
 
 1. require a CUDA device; print nvidia-smi's name and power limit;
-2. build the kernels from ``andix_torch/csrc`` (nvcc, sm_90a) and time it;
+2. build the kernels from ``andix_torch/csrc`` (nvcc, sm_90a, one process
+   per source) and time it;
 3. hold each kernel to its plain PyTorch version on the card, exactly:
    the flag scan at n in {64, 333, 70001, 2^24} (the 2^24 one is the
    padded joint block of 8 x 1 Mbp), the chain walk over every lane of a
    3 x 20 kbp family (whole and truncated) and over the 8 x 1 Mbp main
-   path's first segmented dispatch; print both times;
-4. a 4 x 30 kbp family with a duplicate and an unrelated genome through
+   path's first segmented dispatch; the search walk over a 3 x 20 kbp
+   subject-index group (whole, cut by max_iters=13 with max_events=1, and
+   overflowing an 8-slot event buffer) and over the first segmented
+   dispatch of the 8 x 1 Mbp subject-index run; print the times;
+4. one 1 Mbp subject's index built on the card and on the CPU: SA, LCP,
+   words and cache equal; the build's peak bytes per padded index symbol
+   at 1 Mbp and 5 Mbp;
+5. a 4 x 30 kbp family with a duplicate and an unrelated genome through
    ``andix_torch.cli.main`` with ``--backend cuda`` and ``--backend cpu``:
-   the PHYLIP bytes must be identical;
-5. the 8 x 1 Mbp synthetic family (the repository's benchmark size)
+   the PHYLIP bytes must be identical; then again with a ``--block-size``
+   that splits the joint plan, so ``ANDIX_INDEX=auto`` picks the subject
+   index;
+6. the 8 x 1 Mbp synthetic family (the repository's benchmark size)
    through ``andix_torch.cli.main -m JC`` on the card: wall and per-phase
    seconds, peak device memory, bytes per padded symbol, kernel launch
-   counts (each > 0), and a check of the matrix against the simulated
-   rates.
+   counts (each of the joint path's > 0), and a check of the matrix
+   against the simulated rates; then the same family under
+   ``ANDIX_INDEX=subject``, byte-identical;
+7. the slice's full-size path: 8 x 5 Mbp (bacterial genome length)
+   through the CLI under ``ANDIX_INDEX=subject`` and ``ANDIX_INDEX=joint``:
+   byte-identical PHYLIP, wall, phases, peak memory and launch counts of
+   each (the subject run launches the search walk and never the joint
+   walk), and the matrix check.
 
 The line before the last is the kernel table as one JSON object; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -242,6 +257,185 @@ def phase_walk(dev):
     return (ms, plain_ms, 0)
 
 
+def _sx_walk_setup(dev, n_genomes, length, seed):
+    """The family's subject-index group on ``dev``, with the schedule's own
+    cache depth, segment count and event cap, and the lanes of its first
+    segmented dispatch: every (subject, query) lane cut into K cold
+    segments, padded to the driver's lane bucket."""
+    from andix_torch import pipeline
+    from andix_torch import subject_pipeline as sp
+    from andix_torch.chain import segmented, walk_sx
+    from andix_torch.sequence import Seq, subject_init
+
+    seqs = [Seq(d, name) for name, d in make_family(n_genomes, length, seed)]
+    subjects = [subject_init(s, 0.025) for s in seqs]
+    n = len(seqs)
+    cache_k = sp.cache_depth(subjects, n, pipeline.memory_budget(dev))
+    salcp, sw, cache2, nreal = sp._build_group_index(
+        list(range(n)), subjects, cache_k, dev)
+    raw, q_off, qw_base = sp._host_query_blob(seqs, n)
+    qw = sp._pack_query_words(raw, q_off, n, dev)
+    q_len = q_off[1:] - q_off[:-1]
+    k = sp._chain_segments(int(q_len.max()), n * (n - 1))
+    arr = {name: [] for name in walk_sx.SX_LANE_FIELDS}
+    for s in range(n):
+        thr = int(subjects[s].threshold)
+        for g in range(n):
+            if g == s:
+                continue
+            for j, (st, en) in enumerate(
+                    segmented.plan_segments(int(q_len[g]), k)):
+                entry = (0, 0, 0, 0) if j == 0 else segmented._entry_arrays(
+                    segmented._canon(st, -segmented.BIG, 0, thr))
+                vals = (s, qw_base[g], subjects[s].len, thr, en) + entry
+                for name, v in zip(walk_sx.SX_LANE_FIELDS, vals):
+                    arr[name].append(int(v))
+    lb = segmented._lane_bucket(len(arr["row"]))
+    pad = {"rl": 1, "thr": segmented.BIG}
+    lanes = {name: torch.tensor(v + [pad.get(name, 0)] * (lb - len(v)),
+                                dtype=torch.int32, device=dev)
+             for name, v in arr.items()}
+    return ((salcp, sw, cache2, nreal, qw), lanes, cache_k,
+            sp._event_cap(int(q_off[-1])), k)
+
+
+def _compare_sx(label, index, lanes, iters, maxev, cache_k, ecap):
+    """Hold the search-walk kernel to its plain version on the same lanes;
+    returns (kernel, plain, max_abs_err, overflowed)."""
+    from andix_torch.chain import walk_sx
+
+    def kernel():
+        return walk_sx.chain_walk_flat_sx(*index, lanes, iters, maxev,
+                                          cache_k, ecap)
+
+    def plain():
+        return walk_sx.chain_walk_flat_sx_plain(*index, lanes, iters, maxev,
+                                                cache_k, ecap)
+
+    lb = lanes["row"].shape[0]
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    scal = [int(got[i]) for i in (4, 5, 6)]
+    if scal != [int(ref[i]) for i in (4, 5, 6)] or scal[1] != (
+            scal[0] > ecap):
+        raise AssertionError(f"walk_sx {label}: (ev_cnt, ovf, iters) {scal}"
+                             f" != {[int(ref[i]) for i in (4, 5, 6)]}")
+    err = max_abs_err(got[7:], ref[7:])
+    if not scal[1]:
+        for a, b in zip(_per_lane(got, lb), _per_lane(ref, lb)):
+            if a.shape != b.shape or (a != b).any():
+                raise AssertionError(f"walk_sx {label}: a lane's events "
+                                     f"differ")
+    if err:
+        raise AssertionError(f"walk_sx {label}: exit state max_abs_err "
+                             f"{err}")
+    say(f"chain_walk_flat_sx {label}, {lb} lanes, cache_k={cache_k}, "
+        f"max_iters={iters} max_events={maxev} ecap={ecap}: kernel == plain "
+        f"({scal[0]} events, overflow {bool(scal[1])}, {scal[2]} "
+        f"iterations)")
+    return kernel, plain, err, bool(scal[1])
+
+
+def phase_walk_sx(dev):
+    from andix_torch.chain import segmented
+
+    big = 1 << 28
+    index, lanes, cache_k, _, _ = _sx_walk_setup(dev, 3, 20_000, 5)
+    for iters, maxev, ecap in ((big, big, 1 << 16), (13, 1, 1 << 16),
+                               (big, big, 8)):
+        ovf = _compare_sx("3x20kbp", index, lanes, iters, maxev, cache_k,
+                          ecap)[3]
+        if ovf != (ecap == 8):
+            raise AssertionError(f"walk_sx 3x20kbp ecap={ecap}: overflow "
+                                 f"{ovf}")
+    del index, lanes
+    # the 8 x 1 Mbp subject-index run's first segmented dispatch: 56 lanes
+    # x K cold segments, the driver's first chunk cap and event buffer
+    index, lanes, cache_k, ecap, k = _sx_walk_setup(dev, 8, 1_000_000, 2026)
+    kernel, plain, err, _ = _compare_sx(
+        f"8x1Mbp first dispatch (K={k})", index, lanes,
+        segmented.CHUNK_ITERS, segmented.BIG, cache_k, ecap)
+    ms = cuda_ms(kernel, 5)
+    plain_ms = cuda_ms(plain, 1)
+    say(f"chain_walk_flat_sx 8x1Mbp first dispatch: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms")
+    del index, lanes
+    torch.cuda.empty_cache()
+    return (ms, plain_ms, err)
+
+
+def _peak_since(fn):
+    """(result, seconds, peak device bytes above what was allocated when
+    ``fn`` started)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def phase_index_build(dev):
+    """One subject's index built on the card and on the CPU, equal; the
+    build's peak bytes per padded index symbol on the card, for the suffix
+    array + LCP and for the codes, words and k-mer cache."""
+    from andix_torch import subject_pipeline as sp
+    from andix_torch.esa import doubling, joint, lcp as lcp_mod
+    from andix_torch.esa import subject_index
+    from andix_torch.esa.backend import pad_symbols
+    from andix_torch.sequence import Seq, subject_init
+
+    cache_k = 12  # the schedule's depth at 1 and 5 Mbp
+    peaks = []
+    for length in (1_000_000, 5_000_000):
+        name, data = make_family(1, length)[0]
+        subject = subject_init(Seq(data, name), 0.025)
+        layout = joint.build_block({0: subject.rs}, {})
+        lp = sp.index_length(subject)
+        sym = torch.from_numpy(pad_symbols(layout.sym, lp))
+        torch.cuda.empty_cache()
+
+        def sa_lcp():
+            sa, levels = doubling.suffix_array(sym_d)
+            return sa, lcp_mod.lcp_from_levels(sa, levels), len(levels)
+
+        def codes_words_cache():
+            codes = subject_index.device_order_codes(sym_d)
+            return (subject_index._pack_codes(codes),
+                    subject_index.build_cache(codes, layout.n, cache_k))
+
+        (sym_d,), t_up, p_up = _peak_since(lambda: (sym.to(dev),))
+        (sa, lcp, n_levels), t_sa, p_sa = _peak_since(sa_lcp)
+        (words, cache), t_c, p_c = _peak_since(codes_words_cache)
+        # the build holds the text throughout, and SA + LCP while it packs
+        peak = p_up + max(p_sa, 8 * lp + p_c)
+        say(f"subject index build {length} bp on the card: Lp={lp}, "
+            f"{n_levels} rank levels; upload {t_up:.4f} s, SA+LCP "
+            f"{t_sa:.4f} s (peak {p_sa} B = {p_sa / lp:.2f} B/sym), codes+"
+            f"words+cache k={cache_k} {t_c:.4f} s (peak {p_c} B = "
+            f"{p_c / lp:.2f} B/sym); with the text: {peak / lp:.2f} B per "
+            f"padded index symbol")
+        peaks.append(peak / lp)
+        got = subject_index.build_subject_index(sym_d, layout.n, cache_k)
+        for a, b in zip(got, (sa, lcp, words, cache)):
+            if max_abs_err([a], [b]):
+                raise AssertionError("subject index: build_subject_index "
+                                     "!= its steps")
+        if length == 1_000_000:
+            ref = subject_index.build_subject_index(sym, layout.n, cache_k)
+            n = layout.n
+            pairs = [(sa.cpu(), ref[0]), (lcp[:n].cpu(), ref[1][:n]),
+                     (words.cpu(), ref[2]), (cache.cpu(), ref[3])]
+            if max_abs_err(*zip(*pairs)):
+                raise AssertionError("subject index: card != CPU")
+            say(f"subject index build {length} bp: card == CPU (SA over "
+                f"Lp={lp}, LCP over n_real={n}, words, cache k={cache_k})")
+        del got, sym, sym_d, sa, lcp, words, cache
+        torch.cuda.empty_cache()
+    return peaks
+
+
 def phase_cli_parity(tmp):
     fam = make_family(3, 30_000, seed=11)
     fam.append(("dup", fam[0][1].copy()))
@@ -255,47 +449,70 @@ def phase_cli_parity(tmp):
     say(f"cli 4x30kbp (duplicate + unrelated): --backend cuda == "
         f"--backend cpu, {len(out_c)} bytes, exit {code_c}")
 
-
-def phase_main_path(tmp, card):
+    # a --block-size that splits the joint plan into one block per subject:
+    # ANDIX_INDEX=auto takes the subject index
     from andix_torch import kernels
-    from andix_torch.esa.backend import bucket
 
-    fam = make_family(8, 1_000_000)
-    paths = write_fasta(tmp, fam)
-    padded = bucket(sum(2 * len(d) + 2 for _, d in fam))
-    prof_path = os.path.join(tmp, "prof.txt")
-    os.environ["ANDIX_PROF_FILE"] = prof_path
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    split = ["--block-size", "150000"] + args
     kernels.reset_launches()
-    t0 = time.time()
-    code, out = run_cli(["--backend", "cuda", "--progress=never", "-m", "JC"]
-                        + paths)
+    code_c, out_c = run_cli(["--backend", "cuda"] + split)
     torch.cuda.synchronize()
-    wall = time.time() - t0
     launches = dict(kernels.launches)
-    del os.environ["ANDIX_PROF_FILE"]
+    code_p, out_p = run_cli(["--backend", "cpu"] + split)
+    if (code_c, out_c) != (code_p, out_p):
+        raise AssertionError(f"auto-routed cuda and cpu PHYLIP differ:\n"
+                             f"{out_c}\n{out_p}")
+    if launches["chain_walk_flat_sx"] <= 0 or launches["chain_walk_flat"]:
+        raise AssertionError(f"auto did not route to the subject index: "
+                             f"{launches}")
+    say(f"cli 4x30kbp --block-size 150000 (ANDIX_INDEX=auto -> subject "
+        f"index, launches {launches}): --backend cuda == --backend cpu, "
+        f"{len(out_c)} bytes, exit {code_c}")
+
+
+def _cli_run(paths, index, tmp, label):
+    """One CLI run of ``-m JC`` on the card under ``ANDIX_INDEX=index``,
+    launch counts set to 0 just before and read just after; prints the
+    wall, per-phase seconds, peak memory and launches."""
+    from andix_torch import kernels
+
+    prof_path = os.path.join(tmp, f"prof_{label}.txt")
+    os.environ["ANDIX_PROF_FILE"] = prof_path
+    os.environ["ANDIX_INDEX"] = index
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.time()
+        code, out = run_cli(["--backend", "cuda", "--progress=never", "-m",
+                             "JC"] + paths)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(kernels.launches)
+    finally:
+        del os.environ["ANDIX_PROF_FILE"], os.environ["ANDIX_INDEX"]
     peak = torch.cuda.max_memory_allocated()
     with open(prof_path) as f:
         phases = [line.strip() for line in f if line.strip()]
-    say(f"8x1Mbp main path on {card}: wall {wall:.3f} s (phase syncs on), "
-        f"exit {code}")
+    say(f"{label} (ANDIX_INDEX={index}): wall {wall:.3f} s (phase syncs "
+        f"on), exit {code}")
     for p in phases:
         say(f"  phase {p}")
-    say(f"  peak device memory {peak} B = {peak / padded:.2f} B per padded "
-        f"symbol ({padded} padded symbols)")
+    say(f"  peak device memory {peak} B")
     say(f"  kernel launches {launches}")
     if code != 0:
-        raise AssertionError(f"main path exit code {code}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
+        raise AssertionError(f"{label}: exit code {code}")
+    return out, launches, peak, wall
+
+
+def _check_matrix(out, n_genomes):
     lines = out.strip().split("\n")
     n = int(lines[0])
     names = [ln[:10].strip() for ln in lines[1:]]
     vals = np.array([[float(x) for x in ln[10:].split()]
                      for ln in lines[1:]])
-    if vals.shape != (n, n) or n != 8 or not np.isfinite(vals).all():
+    if vals.shape != (n, n) or n != n_genomes or not np.isfinite(vals).all():
         raise AssertionError(f"bad matrix shape/values:\n{out}")
     if not np.allclose(vals, vals.T, atol=1e-4):
         raise AssertionError("matrix not symmetric")
@@ -304,10 +521,59 @@ def phase_main_path(tmp, card):
         d = vals[names.index("g0"), names.index(f"g{k}")]
         if abs(d - rate) > 0.15 * rate:
             raise AssertionError(f"g0-g{k}: {d} vs simulated {rate}")
-    say("  matrix: 8x8, finite, symmetric, g0->gk within 15% of the "
+    say(f"  matrix: {n}x{n}, finite, symmetric, g0->gk within 15% of the "
         "simulated rates " + " ".join(
             f"{vals[0, k]:.4f}" for k in range(1, n)))
+
+
+def phase_main_path(tmp, card):
+    from andix_torch.esa.backend import bucket
+
+    fam = make_family(8, 1_000_000)
+    paths = write_fasta(tmp, fam)
+    padded = bucket(sum(2 * len(d) + 2 for _, d in fam))
+    out, launches, peak, _ = _cli_run(paths, "auto", tmp,
+                                      f"8x1Mbp main path on {card}")
+    say(f"  {peak / padded:.2f} B per padded symbol ({padded} padded "
+        f"symbols)")
+    if min(launches["flag_scan"], launches["chain_walk_flat"]) <= 0 or \
+            launches["chain_walk_flat_sx"]:
+        raise AssertionError(f"the joint path's kernels did not launch: "
+                             f"{launches}")
+    _check_matrix(out, 8)
+
+    out_sx, sx_launches, _, _ = _cli_run(paths, "subject", tmp,
+                                         f"8x1Mbp subject index on {card}")
+    if out_sx != out:
+        raise AssertionError(f"8x1Mbp subject-index PHYLIP != joint:\n"
+                             f"{out_sx}\n{out}")
+    if sx_launches["chain_walk_flat_sx"] <= 0 or \
+            sx_launches["chain_walk_flat"]:
+        raise AssertionError(f"8x1Mbp subject run launches {sx_launches}")
+    say("  8x1Mbp: ANDIX_INDEX=subject PHYLIP == joint schedule PHYLIP, "
+        f"{len(out)} bytes")
     return launches
+
+
+def phase_full_size(tmp, card):
+    """The slice's full-size path: 8 x 5 Mbp under both schedules."""
+    fam = make_family(8, 5_000_000)
+    paths = write_fasta(tmp, fam)
+    out_sx, sx_launches, _, _ = _cli_run(paths, "subject", tmp,
+                                         f"8x5Mbp subject index on {card}")
+    out_j, _, _, _ = _cli_run(paths, "joint", tmp,
+                              f"8x5Mbp joint schedule on {card}")
+    if out_sx != out_j:
+        raise AssertionError(f"8x5Mbp subject-index PHYLIP != joint:\n"
+                             f"{out_sx}\n{out_j}")
+    if sx_launches["chain_walk_flat_sx"] <= 0 or \
+            sx_launches["chain_walk_flat"]:
+        raise AssertionError(f"8x5Mbp subject run launches {sx_launches}: "
+                             f"rows fell back to the joint walk")
+    say(f"  8x5Mbp: ANDIX_INDEX=subject PHYLIP == ANDIX_INDEX=joint PHYLIP, "
+        f"{len(out_sx)} bytes")
+    _check_matrix(out_sx, 8)
+    return sx_launches
 
 
 def main() -> int:
@@ -330,10 +596,14 @@ def main() -> int:
 
     fs_t = phase_flag_scan(dev)
     walk_t = phase_walk(dev)
+    sx_t = phase_walk_sx(dev)
+    phase_index_build(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli_parity(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main_path(tmp, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        sx_launches = phase_full_size(tmp, smi)
 
     table = {"kernels": [
         {"name": "flag_scan", "route": "cuda",
@@ -346,6 +616,11 @@ def main() -> int:
          "replaces": "andix/chain/replay_device.py:406",
          "launches": launches["chain_walk_flat"], "max_abs_err": walk_t[2],
          "ms": walk_t[0], "plain_ms": walk_t[1]},
+        {"name": "chain_walk_flat_sx", "route": "cuda",
+         "source": "andix_torch/csrc/walk_sx.cu",
+         "replaces": "andix/chain/walk_sx.py:75",
+         "launches": sx_launches["chain_walk_flat_sx"],
+         "max_abs_err": sx_t[2], "ms": sx_t[0], "plain_ms": sx_t[1]},
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

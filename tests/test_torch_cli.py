@@ -84,3 +84,27 @@ def test_backend_errors(capsys, family, monkeypatch):
         captured = capsys.readouterr()
         assert captured.out == ""
         assert "needs a CUDA device" in captured.err
+
+
+def test_auto_index_on_a_split_plan(capsys, family, monkeypatch):
+    """``ANDIX_INDEX=auto``: a ``--block-size`` that splits the joint plan
+    sends both packages to the subject index, with equal stdout bytes and
+    exit codes; one joint block stays on the joint schedule."""
+    from andix_torch import subject_pipeline
+
+    monkeypatch.setenv("ANDIX_INDEX", "auto")
+    monkeypatch.setenv("ANDIX_SX_MESH", "0")
+    runs = []
+    orig = subject_pipeline.process_subject_index
+
+    def recording(todo, *a, **kw):
+        runs.append(list(todo))
+        return orig(todo, *a, **kw)
+
+    monkeypatch.setattr(subject_pipeline, "process_subject_index", recording)
+    code, out = _both(capsys, ["--progress=never", "--block-size", "5000"]
+                      + family)
+    assert runs == [[0, 1, 2, 3, 4]]
+    assert out.startswith("5\n") and code == 1  # the unrelated genome: nan
+    _both(capsys, ["--progress=never"] + family)
+    assert len(runs) == 1

@@ -13,11 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from andix_torch import kernels
+from andix_torch import kernels, subject_pipeline
 from andix_torch.chain import replay_device as rd
-from andix_torch.chain import segmented
-from andix_torch.esa import joint, scans
-from andix_torch.esa.backend import TorchBackend
+from andix_torch.chain import segmented, walk_sx
+from andix_torch.esa import joint, scans, subject_index
+from andix_torch.esa.backend import TorchBackend, pad_symbols
 from andix_torch.sequence import Seq, subject_init
 
 torch.set_num_threads(2)
@@ -53,8 +53,7 @@ def test_flag_scan_kernel_equals_plain(cuda, n, flags, reverse):
         assert torch.equal(a.cpu(), b)
 
 
-def _family_lanes(device, k):
-    """3 x 3000 bp family block, every lane cut into k cold segments."""
+def _family():
     r = np.random.default_rng(3)
     base = NUCL[r.integers(0, 4, 3000)]
     seqs = [Seq(base, "g0")]
@@ -63,7 +62,12 @@ def _family_lanes(device, k):
         hit = r.random(3000) < rate
         seqs.append(Seq(NUCL[(codes + np.where(
             hit, r.integers(1, 4, 3000), 0)) % 4], f"g{len(seqs)}"))
-    subjects = [subject_init(s, 0.025) for s in seqs]
+    return seqs
+
+
+def _family_lanes(device, k):
+    """3 x 3000 bp family block, every lane cut into k cold segments."""
+    subjects = [subject_init(s, 0.025) for s in _family()]
     be = TorchBackend(device)
     ctx = be.prepare_block(joint.build_block(
         {i: subjects[i].rs for i in range(3)}, {}))
@@ -122,6 +126,72 @@ def test_walk_kernel_equals_plain(cuda, k, iters, maxev, ecap, chase,
             assert a.shape == b.shape and (a == b).all()
 
 
+def _sx_group(device, k, cache_k):
+    """The 3 x 3000 bp family's subject index on ``device`` and its lanes
+    cut into k cold segments."""
+    seqs = _family()
+    subjects = [subject_init(s, 0.025) for s in seqs]
+    salcp, sw, cache2, nreal = subject_pipeline._build_group_index(
+        [0, 1, 2], subjects, cache_k, device)
+    raw, q_off, qw_base = subject_pipeline._host_query_blob(seqs, 3)
+    qw = subject_pipeline._pack_query_words(raw, q_off, 3, device)
+    arr = {n: [] for n in walk_sx.SX_LANE_FIELDS}
+    for s in range(3):
+        thr = int(subjects[s].threshold)
+        for g in range(3):
+            if g == s:
+                continue
+            for j, (st, en) in enumerate(segmented.plan_segments(
+                    int(q_off[g + 1] - q_off[g]), k)):
+                entry = (0, 0, 0, 0) if j == 0 else segmented._entry_arrays(
+                    segmented._canon(st, -segmented.BIG, 0, thr))
+                vals = (s, qw_base[g], subjects[s].len, thr, en) + entry
+                for name, v in zip(walk_sx.SX_LANE_FIELDS, vals):
+                    arr[name].append(int(v))
+    lanes = {n: torch.tensor(v, dtype=torch.int32, device=device)
+             for n, v in arr.items()}
+    return (salcp, sw, cache2, nreal, qw), lanes
+
+
+@pytest.mark.parametrize("k,iters,maxev,ecap,cache_k", [
+    (1, 1 << 28, 1 << 28, 1 << 15, 8),
+    (3, 1 << 28, 1 << 28, 1 << 15, 8),
+    (3, 13, 1, 1 << 15, 8),
+    (1, 1 << 28, 1 << 28, 8, 8),
+    (2, 1 << 28, 1 << 28, 1 << 15, 2),
+])
+def test_walk_sx_kernel_equals_plain(cuda, k, iters, maxev, ecap, cache_k):
+    index, lanes = _sx_group(cuda, k, cache_k)
+    before = kernels.launches["chain_walk_flat_sx"]
+    got = walk_sx.chain_walk_flat_sx(*index, lanes, iters, maxev, cache_k,
+                                     ecap)
+    assert kernels.launches["chain_walk_flat_sx"] == before + 1
+    ref = walk_sx.chain_walk_flat_sx_plain(*index, lanes, iters, maxev,
+                                           cache_k, ecap)
+    for i in (4, 5, 6):  # ev_cnt, ovf, iters
+        assert int(got[i]) == int(ref[i])
+    assert bool(got[5]) == (int(got[4]) > ecap)
+    for a, b in zip(got[7:], ref[7:]):  # pos, lq, ls, ll, fin
+        assert torch.equal(a, b)
+    if not bool(ref[5]):
+        lb = lanes["row"].shape[0]
+        for a, b in zip(_per_lane(got, lb), _per_lane(ref, lb)):
+            assert a.shape == b.shape and (a == b).all()
+
+
+def test_subject_index_build_card_equals_cpu(cuda):
+    subject = subject_init(_family()[1], 0.025)
+    layout = joint.build_block({0: subject.rs}, {})
+    sym = torch.from_numpy(pad_symbols(
+        layout.sym, subject_pipeline.index_length(subject)))
+    got = subject_index.build_subject_index(sym.to(cuda), layout.n, 8)
+    ref = subject_index.build_subject_index(sym, layout.n, 8)
+    sa, lcp, words, cache = (x.cpu() for x in got)
+    assert torch.equal(sa, ref[0])
+    assert torch.equal(lcp[: layout.n], ref[1][: layout.n])
+    assert torch.equal(words, ref[2]) and torch.equal(cache, ref[3])
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     v = torch.zeros(8, dtype=torch.int32, device=cuda)
     f = torch.zeros(8, dtype=torch.bool, device=cuda)
@@ -131,3 +201,10 @@ def test_wrappers_refuse_bad_inputs(cuda):
         scans.flag_scan(v, f, v[:4])
     with pytest.raises(ValueError):
         scans.flag_scan(v, f.cpu(), v)
+    index, lanes = _sx_group(cuda, 1, 2)
+    for bad in (dict(lanes, row=lanes["row"].cpu()),
+                dict(lanes, pos0=lanes["pos0"][:1])):
+        with pytest.raises(ValueError):
+            walk_sx.chain_walk_flat_sx(*index, bad, 8, 8, 2, 64)
+    with pytest.raises(ValueError):  # cache rows do not fit cache_k
+        walk_sx.chain_walk_flat_sx(*index, lanes, 8, 8, 3, 64)

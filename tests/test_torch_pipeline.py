@@ -166,6 +166,11 @@ def test_port_imports_neither_jax_nor_andix():
         "import andix_torch, andix_torch.cli, andix_torch.pipeline\n"
         "import andix_torch.kernels, andix_torch.native\n"
         "import andix_torch.chain.replay_device, andix_torch.esa.backend\n"
+        "import andix_torch.subject_pipeline, andix_torch.chain.walk_sx\n"
+        "import andix_torch.esa.subject_index, andix_torch.esa.sa_numpy\n"
+        "import numpy\n"
+        "andix_torch.esa.subject_index.build_subject_index_np("
+        "numpy.frombuffer(b'ACGTTGCA', numpy.uint8), 2)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'andix'))\n"
         "assert not bad, bad\n"
