@@ -8,10 +8,12 @@
   into ``[Sg, QB]`` tables.
 * ``chain_walk_flat``: the segmented schedule's resumable walk over a
   flat list of lanes, called by the host loop in ``chain.segmented`` (a
-  copy of ``andix.chain.segmented``).  On CUDA tensors it launches the hand-written
-  kernel (``csrc/chain_walk.cu``, one thread per lane); on CPU tensors it
-  runs ``chain_walk_flat_plain``, the lock-step loop of the JAX version
-  written in torch ops.
+  copy of ``andix.chain.segmented``).  On CUDA tensors it launches the
+  hand-written kernel (``csrc/chain_walk.cu``, one warp per lane, which
+  compares the text bytes along the diagonal for lucky anchors); on CPU
+  tensors it runs ``chain_walk_flat_plain``, the lock-step loop of the JAX
+  version written in torch ops, which takes every LCE by ISA + range-min
+  as the JAX version does.
 """
 
 from __future__ import annotations
@@ -62,21 +64,24 @@ LANE_FIELDS = ("row", "qoff", "qs", "ss", "rl", "thr", "seg_end",
                "pos0", "lq0", "ls0", "ll0")
 
 
-def chain_walk_flat(isa, rm, mlun, ps, lanes: dict, max_iters: int,
+def chain_walk_flat(isa, rm, text, mlun, ps, lanes: dict, max_iters: int,
                     max_events: int, ecap: int, chase: int, unroll: int):
     """Flat-lane resumable chain-walk chunk.
 
-    ``lanes`` maps each of ``LANE_FIELDS`` to an int32 [Lb] tensor (the
-    lane's subject row, blob offset, text offsets, RS length, threshold,
-    exclusive stop position and entry state).  Returns (ev_lane, ev_q,
+    ``text`` is the block text as uint8 [n] (``BlockContext.text``: the
+    bytes of the joint text, 0 at every separator).  ``lanes`` maps each
+    of ``LANE_FIELDS`` to an int32 [Lb] tensor (the lane's subject row,
+    blob offset, text offsets, RS length, threshold, exclusive stop
+    position and entry state).  Returns (ev_lane, ev_q,
     ev_s, ev_len — int32[ecap] valid up to ev_cnt, each lane's events in
     chain order; ev_cnt; ovf; iters; pos, lq, ls, ll, fin) with the JAX
     version's meaning (``andix/chain/replay_device.py:chain_walk_flat``);
     ev_cnt, ovf and iters are 0-d tensors."""
     if mlun.device.type == "cpu":
-        return chain_walk_flat_plain(isa, rm, mlun, ps, lanes, max_iters,
-                                     max_events, ecap, chase, unroll)
-    return _chain_walk_flat_cuda(isa, rm, mlun, ps, lanes, max_iters,
+        return chain_walk_flat_plain(isa, rm, text, mlun, ps, lanes,
+                                     max_iters, max_events, ecap, chase,
+                                     unroll)
+    return _chain_walk_flat_cuda(isa, rm, text, mlun, ps, lanes, max_iters,
                                  max_events, ecap, chase, unroll)
 
 
@@ -113,12 +118,13 @@ def _check(name, t, dtype, device, dim=1):
         raise ValueError(f"chain_walk_flat: {name} must be contiguous")
 
 
-def _walk_args(isa, rm, mlun, ps, lanes, max_iters, max_events, ecap,
-               chase, unroll, device):
+def _walk_args(isa, rm, text, mlun, ps, lanes, max_iters, max_events,
+               ecap, chase, unroll, device):
     """Checked arguments and output buffers shared by the kernel and its
     host twin."""
     i32 = torch.int32
     lb = lanes["row"].shape[0]
+    _check("text", text, torch.uint8, device)
     for name, t in (("isa", isa), ("rm.values", rm.values),
                     ("rm.pref8", rm.pref8), ("rm.suff8", rm.suff8),
                     ("rm.prefg", rm.prefg), ("rm.suffg", rm.suffg)):
@@ -139,7 +145,8 @@ def _walk_args(isa, rm, mlun, ps, lanes, max_iters, max_events, ecap,
     state = [torch.empty(lb, dtype=i32, device=device) for _ in range(4)]
     fin = torch.empty(lb, dtype=torch.bool, device=device)
     args = (
-        [isa.data_ptr(), rm.values.data_ptr(), rm.pref8.data_ptr(),
+        [isa.data_ptr(), text.data_ptr(), ctypes.c_int64(text.shape[0]),
+         rm.values.data_ptr(), rm.pref8.data_ptr(),
          rm.suff8.data_ptr(), rm.t8.data_ptr(), rm.prefg.data_ptr(),
          rm.suffg.data_ptr(), rm.tg.data_ptr(),
          rm.t8.shape[1], rm.tg.shape[1], rm.tg.shape[0],
@@ -159,15 +166,19 @@ def _walk_result(ev, counters, state, fin, ecap, unroll):
             ev_cnt > ecap, counters[1] * unroll, *state, fin)
 
 
-def _chain_walk_flat_cuda(isa, rm, mlun, ps, lanes, max_iters, max_events,
-                          ecap, chase, unroll):
+def _chain_walk_flat_cuda(isa, rm, text, mlun, ps, lanes, max_iters,
+                          max_events, ecap, chase, unroll):
     device = mlun.device
     if device.type != "cuda":
         raise ValueError("chain_walk_flat: tables must be on a CUDA device")
     args, ev, counters, state, fin = _walk_args(
-        isa, rm, mlun, ps, lanes, max_iters, max_events, ecap, chase,
+        isa, rm, text, mlun, ps, lanes, max_iters, max_events, ecap, chase,
         unroll, device,
     )
+    # the row window loads 4 entries at once, 16-byte aligned
+    if (mlun.shape[1] % 4 or mlun.data_ptr() % 16 or ps.data_ptr() % 16):
+        raise ValueError("chain_walk_flat: mlun and ps must be 16-byte "
+                         "aligned with a row length divisible by 4")
     lib = kernels.cuda_lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -177,22 +188,63 @@ def _chain_walk_flat_cuda(isa, rm, mlun, ps, lanes, max_iters, max_events,
     return _walk_result(ev, counters, state, fin, ecap, unroll)
 
 
-def chain_walk_flat_cpu_twin(isa, rm, mlun, ps, lanes, max_iters,
-                             max_events, ecap, chase, unroll):
+def chain_walk_flat_cpu_twin(isa, rm, text, mlun, ps, lanes, max_iters,
+                             max_events, ecap, chase, unroll,
+                             tiny: bool = False):
     """The kernel's lane body (``walk_lane.cuh``) built for the host with
-    g++ — for testing the kernel's logic without a card."""
+    g++, one thread per lane — for testing the kernel's logic without a
+    card.  ``tiny`` runs it with tiny windows and event staging (4 row
+    entries, 8 diagonal pairs, 3 events) instead of the kernel's."""
     args, ev, counters, state, fin = _walk_args(
-        isa, rm, mlun, ps, lanes, max_iters, max_events, ecap, chase,
+        isa, rm, text, mlun, ps, lanes, max_iters, max_events, ecap, chase,
         unroll, torch.device("cpu"),
     )
-    kernels.cpu_twin().andix_chain_walk_flat_cpu(*args)
+    kernels.cpu_twin().andix_chain_walk_flat_cpu(*args, int(tiny))
     return _walk_result(ev, counters, state, fin, ecap, unroll)
 
 
-def chain_walk_flat_plain(isa, rm, mlun, ps, lanes, max_iters, max_events,
-                          ecap, chase, unroll):
+def walk_lce_cpu_twin(isa, rm, text, a, b, tiny: bool = False):
+    """The kernel's LCE of text suffix pairs (a[i], b[i]), taken in order
+    through one lane's diagonal window (``WalkWindows::lce`` built for the
+    host with g++), and the same by ISA + range-min (``walk_lce``): two
+    int32 [len(a)] tensors.  ``tiny`` takes an 8-pair window instead of
+    the kernel's."""
+    cpu = torch.device("cpu")
+    for name, t in (("isa", isa), ("rm.values", rm.values), ("a", a),
+                    ("b", b)):
+        _check(name, t, torch.int32, cpu)
+    _check("text", text, torch.uint8, cpu)
+    if a.shape != b.shape:
+        raise ValueError("walk_lce_cpu_twin: a and b shapes differ")
+    win, ref = torch.empty_like(a), torch.empty_like(a)
+    kernels.cpu_twin().andix_walk_lce_cpu(
+        isa.data_ptr(), text.data_ptr(), ctypes.c_int64(text.shape[0]),
+        rm.values.data_ptr(), rm.pref8.data_ptr(), rm.suff8.data_ptr(),
+        rm.t8.data_ptr(), rm.prefg.data_ptr(), rm.suffg.data_ptr(),
+        rm.tg.data_ptr(), rm.t8.shape[1], rm.tg.shape[1], rm.tg.shape[0],
+        a.shape[0], a.data_ptr(), b.data_ptr(), win.data_ptr(),
+        ref.data_ptr(), int(tiny))
+    return win, ref
+
+
+def chain_walk_flat_plain(isa, rm, text, mlun, ps, lanes, max_iters,
+                          max_events, ecap, chase, unroll, counts=None,
+                          diag_win=None):
     """Lock-step loop over all lanes in torch ops — the JAX version's
-    iteration structure, with its scalar gates as ``any()`` tests."""
+    iteration structure, with its scalar gates as ``any()`` tests.  Every
+    LCE is taken by ISA + range-min; ``text`` is not read.
+
+    ``counts``, when a dict, receives what the walk's data needs, each
+    table entry counted once (a lane's positions only rise): in-range
+    ``probes``; ``hops`` (mlun entries the jump chain reads);
+    ``table_probes`` (mlun entries read at a probe without a lucky anchor
+    that the chain had not read); ``table_anchors`` (anchors taken from
+    the table, the only probes that need ps); ``lucky_checks``;
+    ``lucky_bytes`` (per check the fewer of 2 * (LCE + 1) text bytes and
+    16 B of ISA and range-min entries); ``events``; and, given the
+    kernel's diagonal window ``diag_win``, ``rm_fallbacks`` (lucky checks
+    whose LCE reaches it, which the kernel finishes by ISA +
+    range-min)."""
     device = mlun.device
     i64 = torch.int64
     row = lanes["row"].to(i64)
@@ -206,6 +258,7 @@ def chain_walk_flat_plain(isa, rm, mlun, ps, lanes, max_iters, max_events,
     zero = torch.zeros(lb, dtype=torch.int32, device=device)
     evn = zero.clone()
     fin = (pos >= seg_end) | (max_events <= 0)
+    last_read = torch.full_like(pos, -1)  # the lane's last mlun entry read
 
     def hop(p):
         v = mlun[row, qoff + p.to(i64)]
@@ -219,7 +272,16 @@ def chain_walk_flat_plain(isa, rm, mlun, ps, lanes, max_iters, max_events,
         return rmq.range_min(rm, torch.minimum(t1, t2) + 1,
                              torch.maximum(t1, t2)).to(torch.int32)
 
+    def tally_reads(key, read, p):
+        nonlocal last_read
+        new = read & (p != last_read)
+        tally[key] += new.sum()
+        last_read = torch.where(read, p, last_read)
+
     events = []  # (lane, q, s, len) per step, step-major
+    tally = {k: torch.zeros((), dtype=torch.int64, device=device)
+             for k in ("probes", "hops", "table_probes", "table_anchors",
+                       "lucky_checks", "rm_fallbacks", "lucky_bytes")}
     it = 0
     while it < max_iters and not bool(fin.all()):
         for _ in range(unroll):
@@ -229,9 +291,13 @@ def chain_walk_flat_plain(isa, rm, mlun, ps, lanes, max_iters, max_events,
             if bool(took.any()):
                 pos_qj = torch.where(took, hop(torch.where(probe, pos, 0)),
                                      pos)
+                if counts is not None:
+                    tally_reads("hops", took, pos)
                 for _ in range(chase):
                     can = took & (pos_qj < seg_end)
                     nxt = hop(torch.where(can, pos_qj, 0))
+                    if counts is not None:
+                        tally_reads("hops", can, pos_qj)
                     pos_qj = torch.where(can & (nxt != pos_qj), nxt, pos_qj)
             in_range = probe & (pos_qj < seg_end)
             safe = torch.where(in_range, pos_qj, 0)
@@ -252,6 +318,17 @@ def chain_walk_flat_plain(isa, rm, mlun, ps, lanes, max_iters, max_events,
             aml = v & (UNIQ_BIT - 1)
             aun = (v & UNIQ_BIT) != 0
             found = in_range & (lucky_found | (aun & (aml >= thr)))
+            if counts is not None:
+                tally["probes"] += in_range.sum()
+                tally_reads("table_probes", in_range & ~lucky_found, pos_qj)
+                tally["table_anchors"] += (found & ~lucky_found).sum()
+                tally["lucky_checks"] += lucky_pre.sum()
+                if diag_win is not None:
+                    tally["rm_fallbacks"] += (lucky_pre
+                                              & (lucky_len >= diag_win)).sum()
+                tally["lucky_bytes"] += torch.where(
+                    lucky_pre, torch.clamp(2 * (lucky_len.long() + 1),
+                                           max=16), 0).sum()
             this_len = torch.where(lucky_found, lucky_len, aml)
             this_s = torch.where(lucky_found, try_s, ps[row, probe_c])
             if bool(found.any()):
@@ -271,6 +348,10 @@ def chain_walk_flat_plain(isa, rm, mlun, ps, lanes, max_iters, max_events,
     ev = (torch.cat(events, dim=1) if events
           else torch.zeros((4, 0), dtype=torch.int32, device=device))
     cnt = ev.shape[1]
+    if counts is not None:
+        if diag_win is None:
+            del tally["rm_fallbacks"]
+        counts.update({k: int(v) for k, v in tally.items()}, events=cnt)
     buf = torch.zeros((4, ecap), dtype=torch.int32, device=device)
     keep = min(cnt, ecap)
     buf[:, :keep] = ev[:, :keep]

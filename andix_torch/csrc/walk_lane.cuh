@@ -1,6 +1,6 @@
 // Per-lane body of the flat chain walk, shared by the CUDA kernel
-// (chain_walk.cu, one thread per lane) and its host twin (walk_cpu.cpp,
-// built with g++ for the tests).
+// (chain_walk.cu, one warp per lane) and its host twin (walk_cpu.cpp,
+// built with g++ for the tests, one thread per lane).
 //
 // Semantics are those of andix/chain/replay_device.py:chain_walk_flat
 // (the anchor scan dist_anchor, src/process.c:141-214, on precomputed
@@ -9,17 +9,39 @@
 // a probe whose gap to the last anchor exceeds the threshold first hops
 // the pure `pos += matchlen + 1` chain to the next anchor candidate (one
 // hop plus `chase` more); lucky anchors extend the last anchor's
-// diagonal through an O(1) longest-common-extension query (range_min
-// over the adjacent LCP between the two suffixes' SA ranks).
+// diagonal by the longest common extension (LCE) of the two suffixes.
 //
 // The JAX loop runs all lanes in lock-step and counts whole iterations;
 // here a lane counts the iterations it ran (a lane that finishes in the
 // middle of an iteration still counts it), and the caller takes the
 // maximum over lanes — the same number the lock-step loop reports.
 //
-// Before including this header define WALK_ATOMIC_ADD(ptr, v): it must
-// return the old value of *ptr and add v (atomicAdd on the card, a plain
-// read-modify-write in the serial host twin).
+// What a lane reads, it reads through three windows (WalkWindows):
+// * the row window: ROW_WIN consecutive entries of the lane's mlun and ps
+//   rows, from a position whose table index is a multiple of 4.  Hops,
+//   candidate tests and ps reads look it up and refill it only when the
+//   position leaves it.
+// * the diagonal window: the mismatch mask of DIAG_WIN symbol pairs
+//   (text[dq + k], text[ds + k]).  The LCE of (a, b) on that diagonal is
+//   the distance from a to the first mismatch at or after it, so the next
+//   lucky checks along one homologous stretch cost no load.  The LCE of a
+//   suffix array is the literal common prefix, and in the joint text
+//   every separator and padding symbol is unique: a pair mismatches where
+//   either position is at or past the text's end, holds a separator (byte
+//   0) or the bytes differ.  Only when the window holds no mismatch from a
+//   on (the LCE reaches past it) does the lane take ISA + range-min, with
+//   the ISA pair loaded together with the window.
+// * the staging of accepted anchors: STAGE events at a time, then one
+//   reservation of that many consecutive slots on the global counter and
+//   one write of the batch in chain order (slots at or past the capacity
+//   are dropped, the counter still counts them).
+//
+// The code is written for THREADS threads that hold the same lane state
+// and take the same branches: 32 on the card (a fill is one load per
+// thread, a lookup a shuffle, a mask a ballot), 1 in the host twin (a fill
+// is a loop into arrays, a lookup an index).  The twin is built at the
+// kernel's window sizes and at tiny ones, so the tests cross every window
+// and staging boundary many times.
 
 #pragma once
 
@@ -29,8 +51,15 @@
 #define WALK_HD inline
 #endif
 
+// the kernel's window and staging sizes (the host twin is also built at
+// tiny ones)
+#define WALK_ROW_WIN 256   // 8 entries a thread
+#define WALK_DIAG_WIN 256  // 8 pairs a thread
+#define WALK_STAGE 32
+
 #define WALK_INF 2147483647
 #define WALK_UNIQ_BIT (1 << 30)
+#define WALK_FULL_MASK 0xffffffffu
 #define RM_FINE 8
 #define RM_GROUP 64
 
@@ -57,6 +86,15 @@ WALK_HD int walk_ilog2(int x) {
   return 31 - __clz(u);
 #else
   return 31 - __builtin_clz(u);
+#endif
+}
+
+// index of the lowest set bit of x != 0
+WALK_HD int walk_ctz(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __ffs(x) - 1;
+#else
+  return __builtin_ctz(x);
 #endif
 }
 
@@ -95,11 +133,13 @@ WALK_HD int range_min(const RangeMinView& rm, int lo, int hi) {
 }
 
 struct WalkTables {
-  const int* isa;    // [Np]
-  RangeMinView rm;   // over the adjacent-LCP array
-  const int* mlun;   // [Sg, qb] match length | UNIQ_BIT
-  const int* ps;     // [Sg, qb] subject position
-  long long qb;      // row stride of mlun / ps
+  const int* isa;             // [Np]
+  const unsigned char* text;  // [n] text bytes, 0 at every separator
+  long long n;                // real symbols + separators
+  RangeMinView rm;            // over the adjacent-LCP array
+  const int* mlun;            // [Sg, qb] match length | UNIQ_BIT
+  const int* ps;              // [Sg, qb] subject position
+  long long qb;               // row stride of mlun / ps
 };
 
 struct WalkLane {
@@ -117,27 +157,236 @@ struct WalkEvents {
   int cap;
 };
 
-// one step of the pure pos += matchlen + 1 chain, stopping at anchor
-// candidates (unique and at least the threshold long)
-WALK_HD int walk_hop(const int* mrow, int p, int thr) {
-  const int v = mrow[p];
-  const int ml = v & (WALK_UNIQ_BIT - 1);
-  const bool cand = (v & WALK_UNIQ_BIT) != 0 && ml >= thr;
-  return cand ? p : p + ml + 1;
-}
-
+// LCE of text suffixes a and b by ISA + range-min over the adjacent LCP
+// (INF when a == b)
 WALK_HD int walk_lce(const WalkTables& t, int a_text, int b_text) {
   const int t1 = t.isa[a_text], t2 = t.isa[b_text];
   return range_min(t.rm, walk_min(t1, t2) + 1, walk_max(t1, t2));
 }
 
+// true where the literal common prefix of two suffixes stops (text
+// positions are below 2^31, so their sum with a window offset fits).
+// Both bytes are loaded whatever the other holds, and no branch waits on
+// them, so a window's loads all go out in one round.
+WALK_HD bool walk_pair_mismatch(const WalkTables& t, unsigned x,
+                                unsigned y) {
+  const unsigned n = (unsigned)t.n;
+  const bool out = (x >= n) | (y >= n);
+  const unsigned char c = t.text[x < n ? x : 0];
+  const unsigned char d = t.text[y < n ? y : 0];
+  return out | (c == 0) | (c != d);
+}
+
+template <int ROW_WIN, int DIAG_WIN, int STAGE, int THREADS>
+struct WalkWindows {
+  static_assert(THREADS == 1 || THREADS == 32, "a warp or one thread");
+  static_assert(ROW_WIN % (4 * THREADS) == 0, "whole 4-entry groups");
+  static_assert(DIAG_WIN % THREADS == 0 && DIAG_WIN <= 32 * 32,
+                "whole pairs per thread, at most 32 mask words");
+  static constexpr int RP = ROW_WIN / THREADS;     // row entries a thread
+  static constexpr int DP = DIAG_WIN / THREADS;    // pairs a thread
+  static constexpr int DW = (DIAG_WIN + 31) / 32;  // mask words
+
+  const WalkTables& t;
+  const int* mrow;  // the lane's mlun row at lane position 0
+  const int* prow;  // the lane's ps row at lane position 0
+  long long row_off;  // table index of lane position 0
+  int row_lim;        // lane positions from here on lie past the row
+  int tid;            // this thread's index among THREADS
+  int rbase;          // lane position of the row window's first entry
+  int m[RP], p[RP];   // this thread's entries: rbase + tid * RP + k
+  int dq, ds;         // text positions of the diagonal window's first pair
+  unsigned mask[DW];  // bit k of the window: pair k mismatches
+  int isa_q, isa_s;   // ISA of dq and ds, loaded with the window
+  int* stage;         // [3, STAGE] staged (q, s, len)
+  int nst;            // staged events
+
+  WALK_HD WalkWindows(const WalkTables& tables, const WalkLane& w,
+                      int* stage_buf, int thread)
+      : t(tables) {
+    row_off = (long long)w.row * t.qb + w.qoff;
+    mrow = t.mlun + row_off;
+    prow = t.ps + row_off;
+    row_lim = (int)(t.qb - w.qoff);
+    tid = thread;
+    rbase = -ROW_WIN - 8;  // covers no lane position
+    dq = ds = -1;
+    for (int k = 0; k < DW; ++k) mask[k] = 0;
+    isa_q = isa_s = 0;
+    stage = stage_buf;
+    nst = 0;
+  }
+
+  WALK_HD bool row_covers(int pos) const {
+    return pos >= rbase && pos < rbase + ROW_WIN;
+  }
+
+  // issues the loads of a row window that holds pos
+  WALK_HD void row_fill(int pos) {
+    rbase = pos - (int)((row_off + pos) & 3);
+    const int first = rbase + tid * RP;
+#ifdef __CUDA_ARCH__
+    // 16-byte loads: (row_off + first) % 4 == 0, and as qb % 4 == 0 a
+    // group of 4 lies wholly inside the row or wholly past it
+#pragma unroll
+    for (int k = 0; k < RP; k += 4) {
+      int4 a = make_int4(0, 0, 0, 0), b = a;
+      if (first + k < row_lim) {
+        a = __ldg(reinterpret_cast<const int4*>(mrow + first + k));
+        b = __ldg(reinterpret_cast<const int4*>(prow + first + k));
+      }
+      m[k] = a.x; m[k + 1] = a.y; m[k + 2] = a.z; m[k + 3] = a.w;
+      p[k] = b.x; p[k + 1] = b.y; p[k + 2] = b.z; p[k + 3] = b.w;
+    }
+#else
+    for (int k = 0; k < RP; ++k) {
+      const bool in = first + k < row_lim;
+      m[k] = in ? mrow[first + k] : 0;
+      p[k] = in ? prow[first + k] : 0;
+    }
+#endif
+  }
+
+  // the window's entry of pos (row_covers(pos) must hold)
+  WALK_HD int row_pick(const int* v, int pos) const {
+    const int e = pos - rbase;
+#ifdef __CUDA_ARCH__
+    const int comp = e % RP;
+    int x = v[0];
+#pragma unroll
+    for (int k = 1; k < RP; ++k) x = comp == k ? v[k] : x;
+    return __shfl_sync(WALK_FULL_MASK, x, e / RP);
+#else
+    return v[e];
+#endif
+  }
+
+  WALK_HD int mlun_at(int pos) {
+    if (!row_covers(pos)) row_fill(pos);
+    return row_pick(m, pos);
+  }
+
+  WALK_HD int ps_at(int pos) {
+    if (!row_covers(pos)) row_fill(pos);
+    return row_pick(p, pos);
+  }
+
+  // one step of the pure pos += matchlen + 1 chain, stopping at anchor
+  // candidates (unique and at least the threshold long)
+  WALK_HD int hop(int pos, int thr) {
+    const int v = mlun_at(pos);
+    const int ml = v & (WALK_UNIQ_BIT - 1);
+    const bool cand = (v & WALK_UNIQ_BIT) != 0 && ml >= thr;
+    return cand ? pos : pos + ml + 1;
+  }
+
+  // issues the loads of the diagonal window from (a, b) and the ISA pair
+  WALK_HD void diag_fill(int a, int b) {
+    dq = a;
+    ds = b;
+    isa_q = t.isa[a];
+    isa_s = t.isa[b];
+#ifdef __CUDA_ARCH__
+    bool mm[DP];
+#pragma unroll
+    for (int j = 0; j < DP; ++j)
+      mm[j] = walk_pair_mismatch(t, (unsigned)(a + tid + 32 * j),
+                                 (unsigned)(b + tid + 32 * j));
+#pragma unroll
+    for (int j = 0; j < DP; ++j) mask[j] = __ballot_sync(WALK_FULL_MASK,
+                                                          mm[j]);
+#else
+    for (int k = 0; k < DW; ++k) mask[k] = 0;
+    for (int j = 0; j < DP; ++j)
+      if (walk_pair_mismatch(t, (unsigned)(a + j), (unsigned)(b + j)))
+        mask[j >> 5] |= 1u << (j & 31);
+#endif
+  }
+
+  // offset of the window's first mismatch at or after offset o, or -1
+  WALK_HD int diag_first(int o) const {
+    int first = -1;
+#pragma unroll
+    for (int k = DW - 1; k >= 0; --k) {
+      const int lo = o - 32 * k;  // bits of word k below offset o
+      unsigned bits = mask[k];
+      bits = lo <= 0 ? bits : (lo >= 32 ? 0u : bits & (~0u << lo));
+      if (bits) first = 32 * k + walk_ctz(bits);
+    }
+    return first;
+  }
+
+  // LCE of text suffixes a and b.  A refill of the diagonal window also
+  // issues the row window's loads for the probe position `pos` when the
+  // row window misses it (the probe reads the row if its lucky check
+  // fails), so every load the check may need comes in one round.
+  WALK_HD int lce(int a, int b, int pos) {
+    if (a == b) return walk_lce(t, a, b);
+    const int o = a - dq;
+    if (dq >= 0 && b - a == ds - dq && o >= 0 && o < DIAG_WIN) {
+      const int first = diag_first(o);
+      if (first >= 0) return first - o;
+      if (o == 0) return lce_past_window();
+    }
+    if (!row_covers(pos)) row_fill(pos);
+    diag_fill(a, b);
+    const int first = diag_first(0);
+    return first >= 0 ? first : lce_past_window();
+  }
+
+  // the LCE of the window's first pair when all its pairs match
+  WALK_HD int lce_past_window() {
+    return range_min(t.rm, walk_min(isa_q, isa_s) + 1,
+                     walk_max(isa_q, isa_s));
+  }
+
+  // reserves slots for the staged events and writes them in chain order
+  WALK_HD void flush(const WalkEvents& ev, int lane) {
+    if (nst == 0) return;
+    int base = 0;
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+    if (tid == 0) base = atomicAdd(ev.count, nst);
+    base = __shfl_sync(WALK_FULL_MASK, base, 0);
+#else
+    base = *ev.count;
+    *ev.count = base + nst;
+#endif
+    for (int k = tid; k < nst; k += THREADS) {
+      const int slot = base + k;
+      if (slot < ev.cap) {
+        ev.lane[slot] = lane;
+        ev.q[slot] = stage[k];
+        ev.s[slot] = stage[STAGE + k];
+        ev.len[slot] = stage[2 * STAGE + k];
+      }
+    }
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+#endif
+    nst = 0;
+  }
+
+  WALK_HD void record(int q, int s, int len, const WalkEvents& ev,
+                      int lane) {
+    if (tid == 0) {
+      stage[nst] = q;
+      stage[STAGE + nst] = s;
+      stage[2 * STAGE + nst] = len;
+    }
+    if (++nst == STAGE) flush(ev, lane);
+  }
+};
+
 // Walks lane `lane` from its entry state; returns the loop iterations it
-// ran.  Events are recorded in chain order.
+// ran.  Every thread of the lane calls it with the same arguments but its
+// own `tid`; `stage` is the lane's [3, STAGE] staging buffer (shared by
+// its threads).  Events are recorded in chain order.
+template <int ROW_WIN, int DIAG_WIN, int STAGE, int THREADS>
 WALK_HD int walk_lane(const WalkTables& t, int lane, WalkLane& w,
                       int max_iters, int max_events, int chase, int unroll,
-                      const WalkEvents& ev) {
-  const int* mrow = t.mlun + (long long)w.row * t.qb + w.qoff;
-  const int* prow = t.ps + (long long)w.row * t.qb + w.qoff;
+                      const WalkEvents& ev, int* stage, int tid) {
+  WalkWindows<ROW_WIN, DIAG_WIN, STAGE, THREADS> win(t, w, stage, tid);
   int evn = 0;
   int it = 0;
   w.fin = (w.pos >= w.seg_end) || (0 >= max_events);
@@ -145,10 +394,10 @@ WALK_HD int walk_lane(const WalkTables& t, int lane, WalkLane& w,
     for (int u = 0; u < unroll && !w.fin; ++u) {
       int pos_qj = w.pos;
       if (w.pos - w.lq - w.ll > w.thr) {
-        pos_qj = walk_hop(mrow, w.pos, w.thr);
+        pos_qj = win.hop(w.pos, w.thr);
         for (int c = 0; c < chase; ++c) {
           if (pos_qj >= w.seg_end) break;
-          pos_qj = walk_hop(mrow, pos_qj, w.thr);
+          pos_qj = win.hop(pos_qj, w.thr);
         }
       }
       if (pos_qj >= w.seg_end) {
@@ -159,32 +408,25 @@ WALK_HD int walk_lane(const WalkTables& t, int lane, WalkLane& w,
         const int advance = pos_qj - w.lq;
         const int gap = advance - w.ll;
         const int try_s = w.ls + advance;
-        bool lucky = false;
+        bool found = false;
         int this_len = 0, this_s = 0;
         if (try_s < w.rl && gap >= 0 && gap <= w.thr) {
-          this_len = walk_lce(t, w.qs + pos_qj, w.ss + try_s);
-          lucky = this_len >= w.thr;
+          this_len = win.lce(w.qs + pos_qj, w.ss + try_s, pos_qj);
+          found = this_len >= w.thr;
           this_s = try_s;
         }
-        bool found = lucky;
-        if (!lucky) {
-          const int v = mrow[pos_qj];
+        if (!found) {
+          const int v = win.mlun_at(pos_qj);
           this_len = v & (WALK_UNIQ_BIT - 1);
           found = (v & WALK_UNIQ_BIT) != 0 && this_len >= w.thr;
-          this_s = prow[pos_qj];
+          this_s = win.ps_at(pos_qj);
         }
         if (found) {
           w.lq = pos_qj;
           w.ls = this_s;
           w.ll = this_len;
           ++evn;
-          const int slot = WALK_ATOMIC_ADD(ev.count, 1);
-          if (slot < ev.cap) {
-            ev.lane[slot] = lane;
-            ev.q[slot] = pos_qj;
-            ev.s[slot] = this_s;
-            ev.len[slot] = this_len;
-          }
+          win.record(pos_qj, this_s, this_len, ev, lane);
         }
         w.pos = pos_qj + this_len + 1;
       }
@@ -192,5 +434,6 @@ WALK_HD int walk_lane(const WalkTables& t, int lane, WalkLane& w,
     }
     ++it;
   }
+  win.flush(ev, lane);
   return it;
 }

@@ -3,10 +3,12 @@ the segmented chain walk, host counting (counterpart of
 ``andix/esa/backend_jax.py``'s ``JaxBackend``).
 
 Per block (``prepare_block``): the padded int32 joint text goes to the
-device as it is; suffix array by prefix doubling, adjacent LCP from the
-rank levels, then segment ids, inverse SA, the query blob's SA slots and
-the range-min structure.  Per subject group (``subject_group_counts``):
-``[Sg, QB]`` match-statistics tables (two flag scans per subject), the
+device as it is, and its byte copy (``BlockContext.text``) stays there
+for the walk's lucky checks; suffix array by prefix doubling, adjacent
+LCP from the rank levels, then segment ids, inverse SA, the query blob's
+SA slots and the range-min structure.  Per subject group
+(``subject_group_counts``): ``[Sg, QB]`` match-statistics tables (two
+flag scans per subject), the
 segmented chain walk (``chain.segmented`` driving ``chain_walk_flat``),
 and the 16-cell counts from the anchor events on the host.
 """
@@ -79,6 +81,20 @@ def prof(label: str, t0: float, device: torch.device | None = None) -> float:
     return time.time()
 
 
+def text_bytes(sym: torch.Tensor, n: int, n_segments: int) -> torch.Tensor:
+    """The block text as uint8 [n]: each real symbol's byte, 0 at every
+    separator.  The walk kernel takes a 0 byte for a unique symbol, so
+    every real symbol must be non-zero (sequences hold ``ACGT!;#`` only,
+    ``sequence.normalize``/``catcomp``); checked here."""
+    sym = sym[:n]
+    text = torch.where(sym < SEPARATOR_BASE, sym, 0).to(torch.uint8)
+    zeros = int((text == 0).sum())
+    if zeros != n_segments:
+        raise ValueError(f"block text: {zeros} zero bytes for {n_segments} "
+                         "separators (a real symbol is 0)")
+    return text
+
+
 @dataclasses.dataclass
 class BlockContext:
     layout: BlockLayout
@@ -91,6 +107,7 @@ class BlockContext:
     isa: torch.Tensor  # int32[Np]
     tq: torch.Tensor  # int32[QB] SA slots of the query blob (padded)
     rm: rmq.RangeMin
+    text: torch.Tensor  # uint8[n] text bytes, 0 at separators
     q_start_h: np.ndarray  # int32[Gp] text base per query lane
     q_len_h: np.ndarray  # int32[Gp] (0 = padding lane)
     q_base_h: np.ndarray  # int32[Gp] blob base per query lane
@@ -105,10 +122,12 @@ class BlockContext:
 
         genomes, q_off, blob = _query_lanes(layout)[:3]
         lcp_d = dev(lcp)
+        text = text_bytes(torch.from_numpy(layout.sym), layout.n,
+                          len(layout.genome_ids))
         return cls(
             layout=layout, q_genomes=genomes, q_off=q_off, query_blob=blob,
             sa=dev(sa), lcp=lcp_d, segid=dev(segid), isa=dev(isa),
-            tq=dev(tq), rm=rmq.build(lcp_d),
+            tq=dev(tq), rm=rmq.build(lcp_d), text=text.to(device),
             q_start_h=np.asarray(q_start, np.int32),
             q_len_h=np.asarray(q_len, np.int32),
             q_base_h=np.asarray(q_base, np.int32),
@@ -174,6 +193,7 @@ class TorchBackend:
         t0 = time.time()
         padded_n = bucket(layout.n)
         sym = torch.from_numpy(pad_symbols(layout.sym, padded_n)).to(dev)
+        text = text_bytes(sym, layout.n, len(layout.genome_ids))
         t0 = prof(f"H2D text ({padded_n} padded symbols)", t0, dev)
         sa, levels = doubling.suffix_array(sym)
         del sym
@@ -191,7 +211,7 @@ class TorchBackend:
         prof("block tables (segid+isa+tq+rmq)", t0, dev)
         return BlockContext(
             layout=layout, q_genomes=genomes, q_off=q_off, query_blob=blob,
-            sa=sa, lcp=lcp, segid=segid, isa=isa, tq=tq, rm=rm,
+            sa=sa, lcp=lcp, segid=segid, isa=isa, tq=tq, rm=rm, text=text,
             q_start_h=q_start, q_len_h=q_len, q_base_h=q_base,
         )
 
@@ -267,9 +287,9 @@ class TorchBackend:
             nonlocal overflowed
             lanes = {name: torch.from_numpy(arr[name]).to(dev)
                      for name in LANE_FIELDS}
-            res = fetch_walk(chain_walk_flat(ctx.isa, ctx.rm, mlun, ps, lanes,
-                                             chunk_iters, maxev, ecap, CHASE,
-                                             UNROLL))
+            res = fetch_walk(chain_walk_flat(ctx.isa, ctx.rm, ctx.text, mlun,
+                                             ps, lanes, chunk_iters, maxev,
+                                             ecap, CHASE, UNROLL))
             overflowed |= res[4]
             return res
 

@@ -11,7 +11,8 @@ header under ``csrc/`` rebuilds.
 ``cpu_twin()`` builds the walk kernels' per-lane bodies
 (``walk_lane.cuh``, ``walk_sx_lane.cuh``) with g++ into a small host
 library, so the kernels' logic can be held to the JAX walks on a machine
-without a card.
+without a card (the flat walk's twin at the kernel's window sizes and at
+tiny ones).
 
 ``launches`` counts, per kernel wrapper, the calls that launched the
 kernel on the card (the plain versions never count).
@@ -42,11 +43,14 @@ _cuda_lib = None
 _cpu_twin = None
 
 # andix_chain_walk_flat's C signature (walk_lane.cuh, chain_walk.cu): the
-# table pointers, range-min sizes, table row stride, lane arrays, scalar
-# budgets, then the output buffers; the CUDA entry adds the stream
+# ISA, the text bytes and their length, the range-min tables and sizes,
+# the row tables and their stride, lane arrays, scalar budgets, then the
+# output buffers; the CUDA entry adds the stream, the host twin its
+# window-size switch
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_WALK_ARGTYPES = ([_P] * 8 + [_I] * 3 + [_P, _P, ctypes.c_int64] + [_P] * 11
-                  + [_I] * 6 + [_P] * 10)
+_WALK_ARGTYPES = ([_P, _P, ctypes.c_int64] + [_P] * 7 + [_I] * 3
+                  + [_P, _P, ctypes.c_int64] + [_P] * 11 + [_I] * 6
+                  + [_P] * 10)
 # andix_chain_walk_sx's (walk_sx_lane.cuh, walk_sx.cu): the index and query
 # word pointers, their sizes and cache_k, lane arrays, scalar budgets, then
 # the output buffers; the CUDA entry adds the stream
@@ -142,6 +146,8 @@ def cuda_lib():
         lib.andix_flag_scan.restype = _I
         lib.andix_chain_walk_flat.argtypes = _WALK_ARGTYPES + [_P]
         lib.andix_chain_walk_flat.restype = _I
+        lib.andix_walk_diag_win.argtypes = []
+        lib.andix_walk_diag_win.restype = _I
         lib.andix_chain_walk_sx.argtypes = _SX_ARGTYPES + [_P]
         lib.andix_chain_walk_sx.restype = _I
         lib.andix_cuda_error_string.argtypes = [_I]
@@ -166,8 +172,12 @@ def cpu_twin():
             _compile(["g++", "-std=c++17", "-O2", "-shared", "-fPIC"],
                      sources, CPU_TWIN_LIB)
         lib = ctypes.CDLL(CPU_TWIN_LIB)
-        lib.andix_chain_walk_flat_cpu.argtypes = _WALK_ARGTYPES
+        lib.andix_chain_walk_flat_cpu.argtypes = _WALK_ARGTYPES + [_I]
         lib.andix_chain_walk_flat_cpu.restype = _I
+        lib.andix_walk_lce_cpu.argtypes = ([_P, _P, ctypes.c_int64]
+                                           + [_P] * 7 + [_I] * 4 + [_P] * 4
+                                           + [_I])
+        lib.andix_walk_lce_cpu.restype = _I
         lib.andix_chain_walk_sx_cpu.argtypes = _SX_ARGTYPES
         lib.andix_chain_walk_sx_cpu.restype = _I
         _cpu_twin = lib

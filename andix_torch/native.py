@@ -1,8 +1,8 @@
 """ctypes bindings for the native host runtime, built for this package.
 
-The same C++ source as ``andix.native`` (``andix/native/andix_native.cpp``,
-read by path — the ``andix`` package is never imported) is compiled with
-g++ into this package's git-ignored ``_build/`` directory on first use.
+The package's own copy of the host counting source, ``csrc/host_native.cpp``
+(held byte for byte equal to ``andix``'s by a test), is compiled with g++
+into this package's git-ignored ``_build/`` directory on first use.
 Only the host counting entry the joint schedule needs is bound here:
 ``count_from_anchors_batch`` (the 16-cell counts from anchor events).
 ``available()`` reports whether the build worked; ``chain.events`` then
@@ -19,9 +19,7 @@ import tempfile
 import numpy as np
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(
-    os.path.dirname(_PKG), "andix", "native", "andix_native.cpp"
-)
+SOURCE = os.path.join(_PKG, "csrc", "host_native.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD_DIR, "libandix_host.so")
 

@@ -9,11 +9,13 @@ line each; any failed phase raises and the script exits non-zero:
 3. hold each kernel to its plain PyTorch version on the card, exactly:
    the flag scan at n in {64, 333, 70001, 2^24} (the 2^24 one is the
    padded joint block of 8 x 1 Mbp), the chain walk over every lane of a
-   3 x 20 kbp family (whole and truncated) and over the 8 x 1 Mbp main
-   path's first segmented dispatch; the search walk over a 3 x 20 kbp
-   subject-index group (whole, cut by max_iters=13 with max_events=1, and
-   overflowing an 8-slot event buffer) and over the first segmented
-   dispatch of the 8 x 1 Mbp subject-index run; print the times;
+   3 x 20 kbp family (whole, truncated, and with its event buffer ending
+   inside a staging batch) and over the first segmented dispatch of the
+   8 x 1 Mbp and of the 8 x 5 Mbp joint runs; the search walk over a
+   3 x 20 kbp subject-index group (whole, cut by max_iters=13 with
+   max_events=1, and overflowing an 8-slot event buffer) and over the
+   first segmented dispatch of the 8 x 1 Mbp subject-index run; print the
+   times, and each kernel's byte bound from the data of its run;
 4. one 1 Mbp subject's index built on the card and on the CPU: SA, LCP,
    words and cache equal; the build's peak bytes per padded index symbol
    at 1 Mbp and 5 Mbp;
@@ -36,6 +38,14 @@ line each; any failed phase raises and the script exits non-zero:
 
 The line before the last is the kernel table as one JSON object; the
 last line is ``{"ok": true, "device": {...}}``.
+
+``bound_ms`` is the least time the card could take for a kernel's work:
+the bytes it must move (each input read once, each output written once;
+for the walks, what this run's data needs, counted as set out at
+``walk_bound`` and ``sx_bound``) over the H100's 3.35 TB/s.  The walks
+and the scan do a few integer operations per byte, so bytes bound them.
+No single PyTorch call computes any of the three functions, so
+``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ import torch
 
 NUCL = np.frombuffer(b"ACGT", dtype=np.uint8)
 RATES = [0.005, 0.01, 0.02, 0.03, 0.05, 0.08, 0.12]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 
 
 def say(msg: str) -> None:
@@ -94,8 +105,9 @@ def run_cli(args: list[str]) -> tuple[int, str]:
     return code, buf.getvalue()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    fn()  # warm
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -150,9 +162,13 @@ def phase_flag_scan(dev):
             f = cases["p0.1"].to(dev)
             ms = cuda_ms(lambda: scans.flag_scan(v, f, p), 20)
             plain_ms = cuda_ms(lambda: scans.flag_scan_plain(v, f, p), 3)
-            timing = (ms, plain_ms, 0)
+            # values, payload (int32) and flags (bool) in; k, g, sa, suf
+            # (int32) out
+            bound_ms = 25 * n / HBM_BYTES_PER_S * 1e3
+            timing = (ms, plain_ms, 0, bound_ms)
             say(f"flag_scan n={n} (10% flags): kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms")
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (25 B per "
+                f"position) = {100 * bound_ms / ms:.1f}% of the kernel")
     return timing
 
 
@@ -207,54 +223,102 @@ def _walk_block(dev, n_genomes, length, seed, k):
     return ctx, lanes, mlun, ps
 
 
+def walk_bound(counts, lanes: int) -> tuple[int, float]:
+    """Bytes a flat-walk dispatch must move, from the plain run's counts
+    (each table entry counted once), and their time at the card's memory
+    rate: 4 B per mlun entry read (by the hop chain, or at a probe without
+    a lucky anchor), 4 B of ps per anchor taken from the table, per lucky
+    check the fewer of its compared text bytes and 16 B of ISA and
+    range-min entries, 16 B per event written, and per lane 44 B of entry
+    fields read and 17 B of exit state written."""
+    nbytes = (4 * (counts["hops"] + counts["table_probes"]
+                   + counts["table_anchors"])
+              + counts["lucky_bytes"] + 16 * counts["events"] + 61 * lanes)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def _compare_walk(label, ctx, lanes, mlun, ps, iters, maxev, ecap):
     """Hold the kernel to the plain version on the same lanes; returns
-    both as zero-argument callables for timing."""
+    both as zero-argument callables for timing, and the plain run's
+    counts (``chain_walk_flat_plain``'s ``counts``)."""
+    from andix_torch import kernels
     from andix_torch.chain import replay_device as rd
 
-    def kernel():
-        return rd.chain_walk_flat(ctx.isa, ctx.rm, mlun, ps, lanes, iters,
-                                  maxev, ecap, 4, 4)
+    diag_win = kernels.cuda_lib().andix_walk_diag_win()
 
-    def plain():
-        return rd.chain_walk_flat_plain(ctx.isa, ctx.rm, mlun, ps, lanes,
-                                        iters, maxev, ecap, 4, 4)
+    def kernel():
+        return rd.chain_walk_flat(ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes,
+                                  iters, maxev, ecap, 4, 4)
+
+    def plain(counts=None):
+        return rd.chain_walk_flat_plain(ctx.isa, ctx.rm, ctx.text, mlun, ps,
+                                        lanes, iters, maxev, ecap, 4, 4,
+                                        counts, diag_win)
 
     lb = lanes["row"].shape[0]
-    got, ref = kernel(), plain()
+    counts = {}
+    got, ref = kernel(), plain(counts)
     torch.cuda.synchronize()
     scal = [int(got[i]) for i in (4, 5, 6)]
-    if scal != [int(ref[i]) for i in (4, 5, 6)]:
+    if scal != [int(ref[i]) for i in (4, 5, 6)] or scal[1] != (
+            scal[0] > ecap):
         raise AssertionError(f"walk {label}: (ev_cnt, ovf, iters) {scal} != "
                              f"{[int(ref[i]) for i in (4, 5, 6)]}")
     err = max_abs_err(got[7:], ref[7:])
-    for a, b in zip(_per_lane(got, lb), _per_lane(ref, lb)):
-        if a.shape != b.shape or (a != b).any():
+    whole = ref
+    if scal[1]:
+        # past ecap the buffer is full and each lane keeps a prefix of its
+        # chain (a lane's slots rise along it), which slots differ by run
+        whole = rd.chain_walk_flat_plain(ctx.isa, ctx.rm, ctx.text, mlun, ps,
+                                         lanes, iters, maxev, scal[0], 4, 4)
+    kept = _per_lane(got, lb)
+    if sum(a.shape[1] for a in kept) != min(scal[0], ecap):
+        raise AssertionError(f"walk {label}: {ecap} slots not all kept")
+    for a, b in zip(kept, _per_lane(whole, lb)):
+        if a.shape[1] > b.shape[1] or (a != b[:, :a.shape[1]]).any() or (
+                not scal[1] and a.shape != b.shape):
             raise AssertionError(f"walk {label}: a lane's events differ")
     if err:
         raise AssertionError(f"walk {label}: exit state max_abs_err {err}")
     say(f"chain_walk_flat {label}, {lb} lanes, max_iters={iters} "
-        f"max_events={maxev}: kernel == plain ({scal[0]} events, "
-        f"{scal[2]} probe steps)")
-    return kernel, plain
+        f"max_events={maxev} ecap={ecap}: kernel == plain ({scal[0]} "
+        f"events, overflow {bool(scal[1])}, {scal[2]} probe steps)")
+    return kernel, plain, counts
+
+
+def _walk_dispatch(dev, length, big):
+    """The joint run's first segmented dispatch of 8 x ``length``: 64 lanes
+    x 8 cold segments, the segmented walk's first chunk cap (768
+    iterations) and its default event buffer (QB / 2); kernel == plain,
+    both timed, the plain run's counts and the byte bound printed.
+    Returns (kernel ms, plain ms, bound ms)."""
+    ctx, lanes, mlun, ps = _walk_block(dev, 8, length, 2026, 8)
+    label = f"8x{length // 1_000_000}Mbp first dispatch"
+    kernel, plain, counts = _compare_walk(label, ctx, lanes, mlun, ps, 768,
+                                          big, ctx.tq.shape[0] // 2)
+    ms = cuda_ms(kernel, 5)
+    plain_ms = cuda_ms(plain, 1, warm=False)
+    lb = lanes["row"].shape[0]
+    nbytes, bound_ms = walk_bound(counts, lb)
+    say(f"chain_walk_flat {label}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    say(f"  counts {json.dumps(counts)}; {nbytes} B to move -> bound "
+        f"{bound_ms:.6f} ms ({100 * bound_ms / ms:.3f}% of the kernel)")
+    del ctx, lanes, mlun, ps
+    torch.cuda.empty_cache()
+    return ms, plain_ms, bound_ms
 
 
 def phase_walk(dev):
     big = 1 << 28
     ctx, lanes, mlun, ps = _walk_block(dev, 3, 20_000, 5, 1)
-    for iters, maxev in ((big, big), (16, 1)):
-        _compare_walk("3x20kbp", ctx, lanes, mlun, ps, iters, maxev, 1 << 16)
-    # the main path's first segmented dispatch of 8 x 1 Mbp: 64 lanes x 8
-    # cold segments, the segmented walk's first chunk cap (768 iterations)
-    # and its default event buffer (QB / 2)
-    ctx, lanes, mlun, ps = _walk_block(dev, 8, 1_000_000, 2026, 8)
-    kernel, plain = _compare_walk("8x1Mbp first dispatch", ctx, lanes, mlun,
-                                  ps, 768, big, ctx.tq.shape[0] // 2)
-    ms = cuda_ms(kernel, 5)
-    plain_ms = cuda_ms(plain, 1)
-    say(f"chain_walk_flat 8x1Mbp first dispatch: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
-    return (ms, plain_ms, 0)
+    for iters, maxev, ecap in ((big, big, 1 << 16), (16, 1, 1 << 16),
+                               (big, big, 50)):
+        _compare_walk("3x20kbp", ctx, lanes, mlun, ps, iters, maxev, ecap)
+    del ctx, lanes, mlun, ps
+    ms, plain_ms, bound_ms = _walk_dispatch(dev, 1_000_000, big)
+    ms5, _, _ = _walk_dispatch(dev, 5_000_000, big)
+    return (ms, plain_ms, 0, bound_ms, ms5)
 
 
 def _sx_walk_setup(dev, n_genomes, length, seed):
@@ -357,11 +421,23 @@ def phase_walk_sx(dev):
         segmented.CHUNK_ITERS, segmented.BIG, cache_k, ecap)
     ms = cuda_ms(kernel, 5)
     plain_ms = cuda_ms(plain, 1)
+    nbytes, bound_ms = sx_bound(kernel(), lanes)
     say(f"chain_walk_flat_sx 8x1Mbp first dispatch: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({nbytes} B)")
     del index, lanes
     torch.cuda.empty_cache()
-    return (ms, plain_ms, err)
+    return (ms, plain_ms, err, bound_ms)
+
+
+def sx_bound(out, lanes) -> tuple[int, float]:
+    """A lower bound on the bytes a search-walk dispatch must move, from
+    its outputs: per lane 36 B of entry fields read and 17 B of exit state
+    written, 16 B per event written, and the packed query words of the
+    positions the lanes walked (8 B per 16 symbols); the index entries its
+    searches read are not counted."""
+    walked = int((out[7].long() - lanes["pos0"].long()).clamp(min=0).sum())
+    nbytes = 53 * lanes["row"].shape[0] + 16 * int(out[4]) + walked // 2
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def _peak_since(fn):
@@ -610,17 +686,20 @@ def main() -> int:
          "source": "andix_torch/csrc/flag_scan.cu",
          "replaces": "andix/esa/scans.py:221",
          "launches": launches["flag_scan"], "max_abs_err": fs_t[2],
-         "ms": fs_t[0], "plain_ms": fs_t[1]},
+         "ms": fs_t[0], "plain_ms": fs_t[1], "bound_ms": fs_t[3],
+         "bound_by": "bytes", "library_ms": None},
         {"name": "chain_walk_flat", "route": "cuda",
          "source": "andix_torch/csrc/chain_walk.cu",
          "replaces": "andix/chain/replay_device.py:406",
          "launches": launches["chain_walk_flat"], "max_abs_err": walk_t[2],
-         "ms": walk_t[0], "plain_ms": walk_t[1]},
+         "ms": walk_t[0], "plain_ms": walk_t[1], "bound_ms": walk_t[3],
+         "bound_by": "bytes", "library_ms": None},
         {"name": "chain_walk_flat_sx", "route": "cuda",
          "source": "andix_torch/csrc/walk_sx.cu",
          "replaces": "andix/chain/walk_sx.py:75",
          "launches": sx_launches["chain_walk_flat_sx"],
-         "max_abs_err": sx_t[2], "ms": sx_t[0], "plain_ms": sx_t[1]},
+         "max_abs_err": sx_t[2], "ms": sx_t[0], "plain_ms": sx_t[1],
+         "bound_ms": sx_t[3], "bound_by": "bytes", "library_ms": None},
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

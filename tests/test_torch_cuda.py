@@ -106,24 +106,33 @@ def _per_lane(out, lb):
     (3, 16, 1, 1 << 15, 4, 4),
     (2, 7, 3, 1 << 15, 4, 1),
     (1, 1 << 28, 1 << 28, 64, 4, 4),
+    (2, 1 << 28, 1 << 28, 50, 4, 4),  # ecap inside a staging batch
 ])
 def test_walk_kernel_equals_plain(cuda, k, iters, maxev, ecap, chase,
                                   unroll):
     ctx, mlun, ps, lanes = _family_lanes(cuda, k)
     before = kernels.launches["chain_walk_flat"]
-    got = rd.chain_walk_flat(ctx.isa, ctx.rm, mlun, ps, lanes, iters, maxev,
-                             ecap, chase, unroll)
+    got = rd.chain_walk_flat(ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes,
+                             iters, maxev, ecap, chase, unroll)
     assert kernels.launches["chain_walk_flat"] == before + 1
-    ref = rd.chain_walk_flat_plain(ctx.isa, ctx.rm, mlun, ps, lanes, iters,
-                                   maxev, ecap, chase, unroll)
+    ref = rd.chain_walk_flat_plain(ctx.isa, ctx.rm, ctx.text, mlun, ps,
+                                   lanes, iters, maxev, ecap, chase, unroll)
     for i in (4, 5, 6):  # ev_cnt, ovf, iters
         assert int(got[i]) == int(ref[i])
     for a, b in zip(got[7:], ref[7:]):  # pos, lq, ls, ll, fin
         assert torch.equal(a, b)
+    lb = lanes["row"].shape[0]
     if not bool(ref[5]):
-        lb = lanes["row"].shape[0]
         for a, b in zip(_per_lane(got, lb), _per_lane(ref, lb)):
             assert a.shape == b.shape and (a == b).all()
+    else:  # the buffer is full, each lane keeping a prefix of its chain
+        whole = rd.chain_walk_flat_plain(ctx.isa, ctx.rm, ctx.text, mlun, ps,
+                                         lanes, iters, maxev, int(ref[4]),
+                                         chase, unroll)
+        kept = _per_lane(got, lb)
+        assert sum(a.shape[1] for a in kept) == ecap
+        for a, b in zip(kept, _per_lane(whole, lb)):
+            assert (a == b[:, :a.shape[1]]).all()
 
 
 def _sx_group(device, k, cache_k):
@@ -208,3 +217,12 @@ def test_wrappers_refuse_bad_inputs(cuda):
             walk_sx.chain_walk_flat_sx(*index, bad, 8, 8, 2, 64)
     with pytest.raises(ValueError):  # cache rows do not fit cache_k
         walk_sx.chain_walk_flat_sx(*index, lanes, 8, 8, 3, 64)
+    ctx, mlun, ps, lanes = _family_lanes(cuda, 1)
+    odd = torch.zeros(mlun.numel() + 1, dtype=torch.int32, device=cuda)
+    odd = odd[1:].view(mlun.shape)  # contiguous, 4 bytes off 16
+    for bad in (dict(mlun=odd), dict(text=ctx.text.to(torch.int32)),
+                dict(text=ctx.text.cpu())):
+        args = dict(mlun=mlun, ps=ps, text=ctx.text) | bad
+        with pytest.raises(ValueError):
+            rd.chain_walk_flat(ctx.isa, ctx.rm, args["text"], args["mlun"],
+                               args["ps"], lanes, 8, 8, 64, 4, 4)

@@ -192,3 +192,15 @@ def test_host_modules_are_verbatim_copies(module):
     assert filecmp.cmp(os.path.join(ROOT, "andix", module),
                        os.path.join(ROOT, "andix_torch", module),
                        shallow=False), module
+
+
+def test_host_native_source_is_a_verbatim_copy():
+    """``andix_torch.native`` builds its own copy of the host counting
+    source, byte for byte ``andix``'s, and reads nothing under andix/."""
+    from andix_torch import native
+
+    assert native.SOURCE == os.path.join(ROOT, "andix_torch", "csrc",
+                                         "host_native.cpp")
+    assert filecmp.cmp(os.path.join(ROOT, "andix", "native",
+                                    "andix_native.cpp"),
+                       native.SOURCE, shallow=False)

@@ -1,10 +1,13 @@
 """andix_torch flat chain walk against the JAX ``chain_walk_flat``: the
 plain lock-step version (what the CPU path runs) and the CUDA kernel's
-per-lane body built for the host with g++ (the "CPU twin").  Per lane:
-the event stream in chain order and the exit state; overall: event
-count, overflow flag and iterations.  The kernel itself is held to the
+per-lane body built for the host with g++ (the "CPU twin"), at the
+kernel's window sizes and at tiny ones.  Per lane: the event stream in
+chain order and the exit state; overall: event count, overflow flag and
+iterations.  Also the kernel's diagonal-window LCE against ISA +
+range-min, and its event staging.  The kernel itself is held to the
 plain version on a card by tests/test_torch_cuda.py."""
 
+import functools
 import shutil
 
 import numpy as np
@@ -19,7 +22,8 @@ from andix.esa.backend_jax import JaxBackend
 from andix.runtime import Context
 from andix.sequence import Seq, subject_init
 from andix_torch.chain import replay_device as rd
-from andix_torch.esa.backend import BlockContext
+from andix_torch.esa import joint as tjoint
+from andix_torch.esa.backend import BlockContext, TorchBackend, text_bytes
 
 torch.set_num_threads(2)
 
@@ -141,7 +145,7 @@ def _run(block, case, fn):
     lanes = _lanes(jctx, geo, k)
     ref = _jax_walk(jctx, mlun, ps, lanes, iters, maxev, ecap, chase, unroll)
     t_lanes = {n: torch.from_numpy(v) for n, v in lanes.items()}
-    got = fn(ctx.isa, ctx.rm, torch.from_numpy(np.array(mlun)),
+    got = fn(ctx.isa, ctx.rm, ctx.text, torch.from_numpy(np.array(mlun)),
              torch.from_numpy(np.array(ps)), t_lanes, iters, maxev, ecap,
              chase, unroll)
     _assert_same(ref, got, len(lanes["row"]))
@@ -154,8 +158,241 @@ def test_plain_walk_equals_jax(block, case):
     assert int(ref[4]) > 0
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_cpu_twin_of_kernel_equals_jax(block, case):
+# the twin at the kernel's window sizes keeps the ids "case0".."case4"
+TWIN_CASES = ([pytest.param(c, False, id=f"case{i}")
+               for i, c in enumerate(CASES)]
+              + [pytest.param(c, True, id=f"case{i}-tiny")
+                 for i, c in enumerate(CASES)])
+
+
+def _need_gxx():
     if shutil.which("g++") is None:
         pytest.skip("g++ is needed to build the kernel's host twin")
-    _run(block, case, rd.chain_walk_flat_cpu_twin)
+
+
+@pytest.mark.parametrize("case,tiny", TWIN_CASES)
+def test_cpu_twin_of_kernel_equals_jax(block, case, tiny):
+    _need_gxx()
+    _run(block, case, functools.partial(rd.chain_walk_flat_cpu_twin,
+                                        tiny=tiny))
+
+
+def _lce_pairs(ctx, a, b, tiny):
+    a = torch.as_tensor(np.asarray(a, np.int32))
+    b = torch.as_tensor(np.asarray(b, np.int32))
+    return rd.walk_lce_cpu_twin(ctx.isa, ctx.rm, ctx.text, a, b, tiny=tiny)
+
+
+def _diagonal_runs(starts_a, starts_b, lengths, n):
+    """Pairs along each diagonal from (a0, b0), one offset after another
+    (as the walk's lucky checks move along an anchor), inside the text."""
+    a, b = [], []
+    for a0, b0, length in zip(starts_a, starts_b, lengths):
+        k = np.arange(length)
+        keep = (a0 + k < n) & (b0 + k < n)
+        a.append(a0 + k[keep])
+        b.append(b0 + k[keep])
+    return np.concatenate(a), np.concatenate(b)
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+def test_window_lce_equals_range_min_on_probe_pairs(block, tiny):
+    """The kernel's LCE from the diagonal window (cached mask, refills and
+    the ISA + range-min finish past the window) equals ISA + range-min on
+    every pair along the diagonals of the walk's anchors, from each
+    anchor's start to past its end, and on random pairs."""
+    _need_gxx()
+    jctx, mlun, ps, ctx, geo = block
+    lanes = _lanes(jctx, geo, 1)
+    out = rd.chain_walk_flat_plain(
+        ctx.isa, ctx.rm, ctx.text, torch.from_numpy(np.array(mlun)),
+        torch.from_numpy(np.array(ps)),
+        {n: torch.from_numpy(v) for n, v in lanes.items()}, 1 << 28,
+        1 << 28, 1 << 15, 4, 4)
+    cnt = int(out[4])
+    lane, q, s, ln = (x[:cnt].numpy() for x in out[:4])
+    n = ctx.layout.n
+    # a lane of a genome against itself meets its own diagonal (LCE INF)
+    a, b = _diagonal_runs(lanes["qs"][lane] + q - 3, lanes["ss"][lane] + s - 3,
+                          np.minimum(ln, 600) + 40, n)
+    rng = np.random.default_rng(5)
+    a = np.concatenate([a, rng.integers(0, n, 4000)])
+    b = np.concatenate([b, rng.integers(0, n, 4000)])
+    win, ref = _lce_pairs(ctx, a, b, tiny)
+    # the longest real LCE here (112) passes the tiny window; anchors past
+    # the kernel's are the next test's
+    assert len(a) > 10_000 and int(ref[ref < n].max()) > 100
+    assert torch.equal(win, ref)
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+def test_window_lce_at_text_edges_and_long_anchors(tiny):
+    """Pairs at separators, at the ends of the reverse complements (the
+    '#' between the halves matches), at n - 1, and anchors far longer than
+    the window (a genome and its duplicate), on the port's own block
+    tables."""
+    _need_gxx()
+    base = _family(2, 1200, [0.03], seed=8)
+    seqs = [base[0], Seq(base[0].data.copy(), "dup"), base[1]]
+    subjects = [subject_init(s, Context().anchor_p_value) for s in seqs]
+    layout = tjoint.build_block({i: subjects[i].rs for i in range(3)}, {})
+    ctx = TorchBackend(torch.device("cpu")).prepare_block(layout)
+    n = layout.n
+    seps = layout.seg_start[1:] - 1
+    length = 1200
+    rc_end = layout.seg_start[:-1] + length - 1  # last revcomp symbol
+    fwd = layout.seg_start[:-1] + length + 1  # first forward symbol
+    a, b = [], []
+    for i in range(3):
+        for j in range(3):
+            if i == j:
+                continue
+            for d in range(-6, 3):  # across the '#' and into the forward
+                a.append(rc_end[i] + d)
+                b.append(rc_end[j] + d)
+            for d in (0, 1, 100, length - 300, length - 2, length - 1):
+                a.append(fwd[i] + d)  # up to the separator
+                b.append(fwd[j] + d)
+            for x in (seps[i], seps[i] - 1, n - 1, n - 2, 0):
+                a += [x, seps[j]]
+                b += [seps[j], x]
+    ra, rb = _diagonal_runs([fwd[0], layout.seg_start[0]],
+                            [fwd[1], layout.seg_start[1]],
+                            [2 * length + 2] * 2, n)
+    win, ref = _lce_pairs(ctx, np.concatenate([a, ra]),
+                          np.concatenate([b, rb]), tiny)
+    assert torch.equal(win, ref)
+    assert int(ref[ref < n].max()) == 2 * length + 1  # revcomp, '#', fwd
+    assert int(((ref > 256) & (ref < n)).sum()) > 1000
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+@pytest.mark.parametrize("ecap", [50, 32, 33, 1])
+def test_staged_events_in_chain_order_when_ecap_cuts_a_batch(block, tiny,
+                                                             ecap):
+    """With the event buffer ending inside a staging batch (32 events on
+    the card, 3 tiny), ev_cnt and ovf are the plain walk's, and the slots
+    below ecap hold the first events of the lanes in lane order, each
+    lane's in chain order (the twin walks its lanes one after another)."""
+    _need_gxx()
+    jctx, mlun, ps, ctx, geo = block
+    lanes = {n: torch.from_numpy(v) for n, v in _lanes(jctx, geo, 2).items()}
+    args = (ctx.isa, ctx.rm, ctx.text, torch.from_numpy(np.array(mlun)),
+            torch.from_numpy(np.array(ps)), lanes, 1 << 28, 1 << 28, ecap, 4,
+            4)
+    ref = rd.chain_walk_flat_plain(*args)
+    got = rd.chain_walk_flat_cpu_twin(*args, tiny=tiny)
+    assert int(got[4]) == int(ref[4]) > ecap and bool(got[5]) and bool(ref[5])
+    ref_all = rd.chain_walk_flat_plain(*args[:8], 1 << 15, 4, 4)
+    cnt = int(ref_all[4])
+    ev = torch.stack([x[:cnt] for x in ref_all[:4]])
+    lane_major = ev[:, torch.from_numpy(np.argsort(ev[0].numpy(),
+                                                   kind="stable"))]
+    assert torch.equal(torch.stack([x[:ecap] for x in got[:4]]),
+                       lane_major[:, :ecap])
+    for a, b in zip(got[7:], ref[7:]):  # pos, lq, ls, ll, fin
+        assert torch.equal(a, b)
+
+
+def test_text_bytes_hold_no_zero_symbol():
+    """The kernel takes a 0 byte for a separator: every byte a sequence can
+    hold after normalize, revcomp and catcomp is non-zero, the block text
+    keeps each real byte and puts 0 at the separators, and a real 0 symbol
+    is refused."""
+    from andix_torch import sequence
+
+    kept = sequence._KEEP[sequence._KEEP != 0]
+    assert (sequence._REVCOMP[kept] != 0).all() and kept.min() > 0
+    assert sequence.HASH != 0
+    seqs = _family(2, 300, [0.1], seed=2)
+    subjects = [subject_init(s, Context().anchor_p_value) for s in seqs]
+    layout = tjoint.build_block({0: subjects[0].rs}, {1: seqs[1].data})
+    text = text_bytes(torch.from_numpy(layout.sym), layout.n, 2)
+    assert (text.numpy() == layout.u8).all()
+    assert (text.numpy()[layout.seg_start[1:] - 1] == 0).all()
+    bad = layout.sym.copy()
+    bad[5] = 0
+    with pytest.raises(ValueError):
+        text_bytes(torch.from_numpy(bad), layout.n, 2)
+
+
+def _scalar_walk_reads(ctx, mlun, ps, lanes, chase, diag_win):
+    """One lane after another in plain Python, whole lanes: the walk's
+    counts, with each mlun entry in a set (the chain's and the probes')."""
+    isa = ctx.isa.numpy()
+    lcp = ctx.rm.values.numpy()
+    uniq = 1 << 30
+    c = dict(probes=0, hops=0, table_probes=0, table_anchors=0,
+             lucky_checks=0, rm_fallbacks=0, lucky_bytes=0, events=0)
+
+    def lce(a, b):
+        t1, t2 = sorted((int(isa[a]), int(isa[b])))
+        return (1 << 31) - 1 if t1 == t2 else int(lcp[t1 + 1: t2 + 1].min())
+
+    for i in range(len(lanes["row"])):
+        row, qoff, qs, ss, rl, thr, seg_end, pos, lq, ls, ll = (
+            int(lanes[n][i]) for n in rd.LANE_FIELDS)
+        chain, probed = set(), set()
+
+        def hop(p):
+            chain.add(p)
+            v = int(mlun[row, qoff + p])
+            ml = v & (uniq - 1)
+            return p if (v & uniq) and ml >= thr else p + ml + 1
+
+        while pos < seg_end:
+            pos_qj = pos
+            if pos - lq - ll > thr:
+                pos_qj = hop(pos)
+                for _ in range(chase):
+                    if pos_qj >= seg_end:
+                        break
+                    pos_qj = hop(pos_qj)
+            if pos_qj >= seg_end:
+                break
+            c["probes"] += 1
+            advance = pos_qj - lq
+            try_s = ls + advance
+            found = False
+            if try_s < rl and 0 <= advance - ll <= thr:
+                length = lce(qs + pos_qj, ss + try_s)
+                c["lucky_checks"] += 1
+                c["rm_fallbacks"] += length >= diag_win
+                c["lucky_bytes"] += min(2 * (length + 1), 16)
+                found, this_s = length >= thr, try_s
+            if not found:
+                probed.add(pos_qj)
+                v = int(mlun[row, qoff + pos_qj])
+                length = v & (uniq - 1)
+                found, this_s = bool(v & uniq) and length >= thr, int(
+                    ps[row, qoff + pos_qj])
+                c["table_anchors"] += found
+            if found:
+                lq, ls, ll = pos_qj, this_s, length
+                c["events"] += 1
+            pos = pos_qj + length + 1
+        c["hops"] += len(chain)
+        c["table_probes"] += len(probed - chain)
+    return c
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_plain_counts_each_table_entry_once(block, k):
+    """The plain walk's counts, which set the kernel's byte bound, equal
+    those of a scalar walk that keeps every mlun entry it reads in a set:
+    a hop that stays on its candidate and a probe at the chain's last
+    entry read nothing new, and ps is read only for the table's
+    anchors."""
+    jctx, mlun, ps, ctx, geo = block
+    lanes = _lanes(jctx, geo, k)
+    mlun, ps = np.array(mlun), np.array(ps)
+    counts = {}
+    rd.chain_walk_flat_plain(
+        ctx.isa, ctx.rm, ctx.text, torch.from_numpy(mlun),
+        torch.from_numpy(ps),
+        {n: torch.from_numpy(v) for n, v in lanes.items()}, 1 << 28,
+        1 << 28, 1 << 15, 4, 4, counts, diag_win=24)
+    ref = _scalar_walk_reads(ctx, mlun, ps, lanes, 4, 24)
+    assert counts == ref
+    assert min(ref.values()) > 0
+    assert ref["table_anchors"] < ref["probes"] - ref["lucky_checks"]

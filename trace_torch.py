@@ -1,0 +1,111 @@
+"""Trace one CLI run of ``andix_torch`` on a CUDA card with torch.profiler.
+
+Run from the repository root, on a machine with a card:
+
+    python3 trace_torch.py [--genomes 8] [--length 5000000]
+                           [--index joint|subject|auto] [--runs 2]
+
+It writes the synthetic family of ``chip_smoke.make_family`` to a
+temporary directory, runs ``andix_torch.cli.main --backend cuda -m JC``
+once untraced (kernel build and warm-up), then ``--runs`` times under
+``torch.profiler`` (CPU and CUDA activities).  For each traced run it
+prints the wall (host clock, from the CLI call to the matrix, ending in a
+synchronize), the device busy time (the sum of the device time of every
+kernel, copy and fill, which run on one stream) and its share of the
+wall, the hand-written kernels' device time and launches, and the ten
+largest device items.  It prints the card's name and power limit first,
+and exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+import chip_smoke
+
+OURS = ("chain_walk_flat_kernel", "walk_sx", "flag_scan", "finals_kernel",
+        "prefix_kernel", "seeded_kernel")
+
+
+def _device_items(prof):
+    """{name: (device microseconds, count)} for every device-side event
+    (kernels, copies, fills; the host ops that launched them are left
+    out, so nothing counts twice)."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us <= 0:
+            continue
+        t, c = out.get(e.key, (0.0, 0))
+        out[e.key] = (t + us, c + e.count)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--genomes", type=int, default=8)
+    ap.add_argument("--length", type=int, default=5_000_000)
+    ap.add_argument("--index", default="joint")
+    ap.add_argument("--runs", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("trace_torch: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    label = f"{args.genomes}x{args.length} ANDIX_INDEX={args.index}"
+    os.environ["ANDIX_INDEX"] = args.index
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = chip_smoke.write_fasta(
+            tmp, chip_smoke.make_family(args.genomes, args.length))
+        cli = ["--backend", "cuda", "--progress=never", "-m", "JC"] + paths
+        chip_smoke.run_cli(cli)  # build and warm
+        for run in range(args.runs):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                code, _ = chip_smoke.run_cli(cli)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            items = _device_items(prof)
+            busy = sum(t for t, _ in items.values()) / 1e6
+            ours = {k: v for k, v in items.items()
+                    if any(o in k for o in OURS)}
+            top = sorted(items.items(), key=lambda kv: -kv[1][0])[:10]
+            print(f"trace {label} run {run + 1}: exit {code}, wall "
+                  f"{wall:.6f} s, device busy {busy:.6f} s "
+                  f"({100 * busy / wall:.2f}%)", flush=True)
+            for k, (us, c) in sorted(ours.items()):
+                print(f"  kernel {k[:60]}: {us / 1e3:.4f} ms, {c} launches")
+            for k, (us, c) in top:
+                print(f"  top {k[:60]}: {us / 1e3:.4f} ms, {c} calls")
+            print(json.dumps({"run": run + 1, "label": label, "wall_s": wall,
+                              "busy_s": busy, "kernels_ms": {
+                                  k: v[0] / 1e3 for k, v in ours.items()}}),
+                  flush=True)
+            if code != 0:
+                return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
