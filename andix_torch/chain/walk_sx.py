@@ -13,9 +13,11 @@ anchor's diagonal with the same word compares.
 A lane is a state machine over four phases (``P_FIRST`` probe start,
 ``P_LUCKY``, ``P_BIS``, ``P_AB``); one iteration advances every active
 lane by one step.  ``chain_walk_flat_sx`` dispatches on the device: CUDA
-tensors launch the hand-written kernel (``csrc/walk_sx.cu``, one thread
-per lane), CPU tensors run ``chain_walk_flat_sx_plain``, the JAX loop's
-lock-step iteration written in torch ops.
+tensors launch the hand-written kernel (``csrc/walk_sx.cu``, one warp per
+lane, whole probes with 32-word compares, the iterations of the one-step
+loop counted from their outcomes), CPU tensors run
+``chain_walk_flat_sx_plain``, the JAX loop's lock-step iteration written
+in torch ops.
 """
 
 from __future__ import annotations
@@ -177,22 +179,36 @@ def _chain_walk_flat_sx_cuda(salcp, sw, cache2, nreal, qw, lanes, max_iters,
 
 
 def chain_walk_flat_sx_cpu_twin(salcp, sw, cache2, nreal, qw, lanes,
-                                max_iters, max_events, cache_k, ecap):
+                                max_iters, max_events, cache_k, ecap,
+                                tiny: bool = False):
     """The kernel's lane body (``walk_sx_lane.cuh``) built for the host
-    with g++ — for testing the kernel's logic without a card."""
+    with g++, one thread per lane — for testing the kernel's logic without
+    a card.  ``tiny`` runs it with tiny compare rounds, windows and event
+    staging (2 words a round, 3 query words, 4 diagonal words, 3 events)
+    instead of the kernel's."""
     args, ev, counters, state, fin = _walk_args(
         salcp, sw, cache2, nreal, qw, lanes, max_iters, max_events, cache_k,
         ecap, torch.device("cpu"),
     )
-    kernels.cpu_twin().andix_chain_walk_sx_cpu(*args)
+    kernels.cpu_twin().andix_chain_walk_sx_cpu(*args, int(tiny))
     return _walk_result(ev, counters, state, fin, ecap)
 
 
 def chain_walk_flat_sx_plain(salcp, sw, cache2, nreal, qw, lanes,
                              max_iters: int, max_events: int, cache_k: int,
-                             ecap: int):
+                             ecap: int, counts=None):
     """Lock-step loop over all lanes in torch ops: the JAX loop body line
-    for line, with its exit test as an ``any()`` once per super-step."""
+    for line, with its exit test as an ``any()`` once per super-step.
+
+    ``counts``, when a dict, receives what the walk's data needs: the
+    index entries it reads, each counted once over the dispatch (``sa``,
+    ``lcp`` and ``cache`` entries, ``sw`` subject words and ``qw`` query
+    words; a window that starts on a word boundary needs only that word;
+    cache entries only for probes the lucky check does not settle; LCP
+    entries only for the uniqueness test of a boundary pair), and
+    ``probes``, ``lucky_checks``, ``bis_steps`` (resolved bisection
+    steps), ``ab_pairs`` (boundary pairs), ``words`` (word pairs compared)
+    and ``events``."""
     device = salcp.device
     i64 = torch.int64
     row = lanes["row"].to(i64)
@@ -244,6 +260,31 @@ def chain_walk_flat_sx_plain(salcp, sw, cache2, nreal, qw, lanes,
     bb = aa.clone()
     spA = setup_sp(pos, lq, ls, ll, fin)
 
+    if counts is not None:
+        seen = {"sa": torch.zeros(salcp.shape[0], salcp.shape[2],
+                                  dtype=torch.bool, device=device),
+                "cache": torch.zeros(cache2.shape, dtype=torch.bool,
+                                     device=device),
+                "sw": torch.zeros(sw.shape, dtype=torch.bool, device=device),
+                "qw": torch.zeros(qw.shape, dtype=torch.bool, device=device)}
+        seen["lcp"] = seen["sa"].clone()
+        tally = {k: torch.zeros((), dtype=i64, device=device)
+                 for k in ("probes", "lucky_checks", "bis_steps", "ab_pairs",
+                           "words")}
+        pcode = torch.full_like(z, -1)  # the probe's cache code, if valid
+
+        def mark(key, where, col, row_=row):
+            """Entries [row, col] at lanes ``where`` were read."""
+            if key == "qw":
+                seen[key][col[where]] = True
+            else:
+                seen[key][row_[where], col[where].to(i64)] = True
+
+        def mark_words(key, where, p, last):
+            j = (p >> 4).to(i64)
+            mark(key, where, torch.clamp(j, max=last))
+            mark(key, where & ((p & 15) != 0), torch.clamp(j + 1, max=last))
+
     events = []  # (lane, q, s, len) per iteration, iteration-major
     it = 0
     while it < max_iters and not bool(fin.all()):
@@ -282,6 +323,17 @@ def chain_walk_flat_sx_plain(salcp, sw, cache2, nreal, qw, lanes,
             ph = torch.where(first_lucky, P_LUCKY, ph)
             ph = torch.where(e_to_bis, P_BIS, ph)
             ph = torch.where(e_to_ab, P_AB, ph)
+            if counts is not None:
+                tally["probes"] += is_first.sum()
+                tally["lucky_checks"] += first_lucky.sum()
+                mark_words("qw", act, qa + h, qw_last)
+                pcode = torch.where(is_first, torch.where(valid, code, -1),
+                                    pcode)
+                for d in (0, 1):
+                    mark("cache", first_nl & valid, code + d)
+                mark("sa", e_to_bis, mid_e)
+                mark("sa", e_to_ab & (ipv > 0), ipv - 1)
+                mark("sa", e_to_ab & (ipv < nr), ipv)
 
             # ---- compares (A slot: lucky/bis/left boundary; B: right) --
             in_lucky = act & (ph == P_LUCKY)
@@ -298,6 +350,10 @@ def chain_walk_flat_sx_plain(salcp, sw, cache2, nreal, qw, lanes,
             snA = _nibble(wsA, miA)
             mmA = mA < 16
             mmB = mB < 16
+            if counts is not None:
+                tally["words"] += a_active.sum() + b_active.sum()
+                mark_words("sw", a_active, spA + h, lanes_sq - 1)
+                mark_words("sw", b_active, spB + h, lanes_sq - 1)
             lcpA = h + mA
             lcpB = h + mB
 
@@ -349,6 +405,13 @@ def chain_walk_flat_sx_plain(salcp, sw, cache2, nreal, qw, lanes,
             ph = torch.where(post_to_bis, P_BIS, ph)
             ph = torch.where(post_to_ab, P_AB, ph)
             h = torch.where(seek, torch.minimum(llo, lhi), h)
+            if counts is not None:
+                tally["bis_steps"] += b_done.sum()
+                for d in (0, 1):
+                    mark("cache", l_fail & (pcode >= 0), pcode + d)
+                mark("sa", post_to_bis, mid2)
+                mark("sa", post_to_ab & (ipv > 0), ipv - 1)
+                mark("sa", post_to_ab & (ipv < nr), ipv)
 
             # ---- FINAL: stats, chain update, next-probe setup ----
             finishing = ab_done | l_acc
@@ -361,6 +424,11 @@ def chain_walk_flat_sx_plain(salcp, sw, cache2, nreal, qw, lanes,
                               (ipv + 1 >= nr) | (lcpPB < bb))
             )
             psv = torch.where(use_a, spA, spB)
+            if counts is not None:
+                tally["ab_pairs"] += ab_done.sum()
+                tested = ab_done & (ml > 0) & (aa != bb)
+                mark("lcp", tested & use_a, torch.clamp(ipv - 1, min=0))
+                mark("lcp", tested & ~use_a & (ipv + 1 < nr), ipv + 1)
             found = l_acc | (ab_done & unique & (ml >= thr))
             this_len = torch.where(l_acc, lcpA, ml)
             this_s = torch.where(l_acc, spA, psv)
@@ -385,6 +453,10 @@ def chain_walk_flat_sx_plain(salcp, sw, cache2, nreal, qw, lanes,
     ev = (torch.cat(events, dim=1) if events
           else torch.zeros((4, 0), dtype=torch.int32, device=device))
     cnt = ev.shape[1]
+    if counts is not None:
+        counts.update({k: int(v) for k, v in tally.items()},
+                      **{k: int(v.sum()) for k, v in seen.items()},
+                      events=cnt)
     buf = torch.zeros((4, max(ecap, 1)), dtype=torch.int32, device=device)
     keep = min(cnt, ecap)
     buf[:, :keep] = ev[:, :keep]

@@ -9,9 +9,9 @@
 * ``suf`` — min of values in (last flag, here].
 
 On a CUDA tensor it launches the hand-written kernel
-(``csrc/flag_scan.cu``); on a CPU tensor it runs the plain version below,
-a log-step (Hillis-Steele) scan of the same monoid — exact because the
-monoid is associative.
+(``csrc/flag_scan.cu``, one pass with decoupled look-back); on a CPU
+tensor it runs the plain version below, a log-step (Hillis-Steele) scan
+of the same monoid — exact because the monoid is associative.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ import torch
 from .. import kernels
 
 INF32 = 2**31 - 1
-_TILE = 2048  # elements per thread block in csrc/flag_scan.cu
 
 
 def _fs_combine(a, b):
@@ -86,13 +85,14 @@ def flag_scan(values: torch.Tensor, flags: torch.Tensor,
     return _flag_scan_cuda(values, flags, sa_vals, reverse)
 
 
-def _flag_scan_cuda(values, flags, sa_vals, reverse):
+def _check_inputs(values, flags, sa_vals, device_type):
     n = values.shape[0]
     for name, t, dt in (("values", values, torch.int32),
                         ("flags", flags, torch.bool),
                         ("sa_vals", sa_vals, torch.int32)):
-        if t.device != values.device or t.device.type != "cuda":
-            raise ValueError(f"flag_scan: {name} must be on the CUDA device")
+        if t.device != values.device or t.device.type != device_type:
+            raise ValueError(f"flag_scan: {name} must be on the "
+                             f"{device_type.upper()} device")
         if t.dtype != dt or t.dim() != 1 or t.shape[0] != n:
             raise ValueError(
                 f"flag_scan: {name} must be 1-D {dt} of length {n}, got "
@@ -100,18 +100,76 @@ def _flag_scan_cuda(values, flags, sa_vals, reverse):
             )
         if not t.is_contiguous():
             raise ValueError(f"flag_scan: {name} must be contiguous")
+
+
+def flag_scan_scratch(n: int, reverse: bool, device) -> torch.Tensor:
+    """The kernel's int32 scratch for a scan of n positions: one status
+    word per tile, the tile counter, and each tile's aggregate and
+    inclusive prefix (``flag_scan_tile.cuh``)."""
+    ints = kernels.cuda_lib().andix_flag_scan_scratch_ints(n, int(reverse))
+    return torch.empty(max(ints, 4), dtype=torch.int32, device=device)
+
+
+def _flag_scan_cuda(values, flags, sa_vals, reverse, scratch=None):
+    """One launch of the kernel; ``scratch`` (``flag_scan_scratch``) may be
+    given to read the tiles' published states afterwards."""
+    _check_inputs(values, flags, sa_vals, "cuda")
+    n = values.shape[0]
     lib = kernels.cuda_lib()
     outs = [torch.empty(n, dtype=torch.int32, device=values.device)
             for _ in range(4)]
-    nb = max(1, -(-n // _TILE))
-    prefix = torch.empty(nb * 5, dtype=torch.int32, device=values.device)
+    if scratch is None:
+        scratch = flag_scan_scratch(n, reverse, values.device)
+    elif (scratch.dtype != torch.int32 or scratch.device != values.device
+          or scratch.numel() < lib.andix_flag_scan_scratch_ints(
+              n, int(reverse))):
+        raise ValueError("flag_scan: scratch must come from "
+                         "flag_scan_scratch for this n and direction")
+    # the kernel reads and writes 16 bytes at a time
+    for name, t in (("values", values), ("flags", flags),
+                    ("sa_vals", sa_vals), ("scratch", scratch)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flag_scan: {name} must be 16-byte aligned")
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.andix_flag_scan(
             values.data_ptr(), flags.data_ptr(), sa_vals.data_ptr(),
-            ctypes.c_int64(n), 1 if reverse else 0, prefix.data_ptr(),
+            ctypes.c_int64(n), 1 if reverse else 0, scratch.data_ptr(),
             *(o.data_ptr() for o in outs), stream,
         )
     kernels.check(err, "flag_scan")
     kernels.launches["flag_scan"] += 1
     return tuple(outs)
+
+
+def flag_scan_cpu_twin(values, flags, sa_vals, reverse: bool = False,
+                       agg_only=None, tiny: bool = False):
+    """The kernel's tile body and look-back (``flag_scan_tile.cuh``) built
+    for the host with g++, tiles run in counter order — for testing the
+    kernel's logic without a card.  ``agg_only``, a bool [tiles] tensor
+    (``flag_scan_cpu_tiles``), marks tiles that publish only their
+    aggregate; ``tiny`` takes tiles of 64 positions instead of the
+    kernel's 4096.  Returns (k, g, sa, suf, status), status being each
+    tile's final status word (1 aggregate, 2 inclusive)."""
+    _check_inputs(values, flags, sa_vals, "cpu")
+    n = values.shape[0]
+    tiles = flag_scan_cpu_tiles(n, reverse, tiny)
+    if agg_only is not None and (agg_only.dtype != torch.bool
+                                 or agg_only.shape != (tiles,)):
+        raise ValueError(f"flag_scan_cpu_twin: agg_only must be bool "
+                         f"[{tiles}]")
+    outs = [torch.empty(n, dtype=torch.int32) for _ in range(4)]
+    status = torch.zeros(tiles, dtype=torch.int32)
+    kernels.cpu_twin().andix_flag_scan_cpu(
+        values.data_ptr(), flags.data_ptr(), sa_vals.data_ptr(),
+        ctypes.c_int64(n), 1 if reverse else 0,
+        None if agg_only is None else agg_only.contiguous().data_ptr(),
+        int(tiny), *(o.data_ptr() for o in outs), status.data_ptr())
+    return (*outs, status)
+
+
+def flag_scan_cpu_tiles(n: int, reverse: bool = False,
+                        tiny: bool = False) -> int:
+    """Tiles of the host twin's scan of n positions."""
+    return int(kernels.cpu_twin().andix_flag_scan_cpu_tiles(
+        n, int(reverse), int(tiny)))

@@ -8,10 +8,10 @@ use, from the sources in this checkout, into the git-ignored ``_build/``
 directory — nothing is compiled at import.  Editing any source or any
 header under ``csrc/`` rebuilds.
 
-``cpu_twin()`` builds the walk kernels' per-lane bodies
-(``walk_lane.cuh``, ``walk_sx_lane.cuh``) with g++ into a small host
-library, so the kernels' logic can be held to the JAX walks on a machine
-without a card (the flat walk's twin at the kernel's window sizes and at
+``cpu_twin()`` builds the kernels' shared bodies (``flag_scan_tile.cuh``,
+``walk_lane.cuh``, ``walk_sx_lane.cuh``) with g++ into a small host
+library, so the kernels' logic can be held to the JAX functions on a
+machine without a card (each at the kernel's tile or window sizes and at
 tiny ones).
 
 ``launches`` counts, per kernel wrapper, the calls that launched the
@@ -31,7 +31,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CUDA_SOURCES = ("flag_scan.cu", "chain_walk.cu", "walk_sx.cu")
-CPU_TWIN_SOURCES = ("walk_cpu.cpp", "walk_sx_cpu.cpp")
+CPU_TWIN_SOURCES = ("flag_scan_cpu.cpp", "walk_cpu.cpp", "walk_sx_cpu.cpp")
 CUDA_LIB = os.path.join(BUILD_DIR, "libandix_torch_cuda.so")
 CPU_TWIN_LIB = os.path.join(BUILD_DIR, "libandix_torch_walk_cpu.so")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -144,6 +144,8 @@ def cuda_lib():
         lib.andix_flag_scan.argtypes = [_P, _P, _P, ctypes.c_int64, _I, _P,
                                         _P, _P, _P, _P, _P]
         lib.andix_flag_scan.restype = _I
+        lib.andix_flag_scan_scratch_ints.argtypes = [ctypes.c_int64, _I]
+        lib.andix_flag_scan_scratch_ints.restype = ctypes.c_int64
         lib.andix_chain_walk_flat.argtypes = _WALK_ARGTYPES + [_P]
         lib.andix_chain_walk_flat.restype = _I
         lib.andix_walk_diag_win.argtypes = []
@@ -164,7 +166,7 @@ def check(err: int, name: str) -> None:
 
 
 def cpu_twin():
-    """The walk kernels' lane bodies built for the host with g++."""
+    """The kernels' tile and lane bodies built for the host with g++."""
     global _cpu_twin
     if _cpu_twin is None:
         sources = [os.path.join(CSRC, s) for s in CPU_TWIN_SOURCES]
@@ -172,13 +174,18 @@ def cpu_twin():
             _compile(["g++", "-std=c++17", "-O2", "-shared", "-fPIC"],
                      sources, CPU_TWIN_LIB)
         lib = ctypes.CDLL(CPU_TWIN_LIB)
+        lib.andix_flag_scan_cpu_tiles.argtypes = [ctypes.c_int64, _I, _I]
+        lib.andix_flag_scan_cpu_tiles.restype = ctypes.c_int64
+        lib.andix_flag_scan_cpu.argtypes = [_P, _P, _P, ctypes.c_int64, _I,
+                                            _P, _I, _P, _P, _P, _P, _P]
+        lib.andix_flag_scan_cpu.restype = _I
         lib.andix_chain_walk_flat_cpu.argtypes = _WALK_ARGTYPES + [_I]
         lib.andix_chain_walk_flat_cpu.restype = _I
         lib.andix_walk_lce_cpu.argtypes = ([_P, _P, ctypes.c_int64]
                                            + [_P] * 7 + [_I] * 4 + [_P] * 4
                                            + [_I])
         lib.andix_walk_lce_cpu.restype = _I
-        lib.andix_chain_walk_sx_cpu.argtypes = _SX_ARGTYPES
+        lib.andix_chain_walk_sx_cpu.argtypes = _SX_ARGTYPES + [_I]
         lib.andix_chain_walk_sx_cpu.restype = _I
         _cpu_twin = lib
     return _cpu_twin

@@ -7,15 +7,17 @@ line each; any failed phase raises and the script exits non-zero:
 2. build the kernels from ``andix_torch/csrc`` (nvcc, sm_90a, one process
    per source) and time it;
 3. hold each kernel to its plain PyTorch version on the card, exactly:
-   the flag scan at n in {64, 333, 70001, 2^24} (the 2^24 one is the
-   padded joint block of 8 x 1 Mbp), the chain walk over every lane of a
+   the flag scan at n in {64, 333, 4097, 70001, 2^24, 100,663,296} (the
+   padded joint blocks of 8 x 1 and 8 x 5 Mbp), the chain walk over
+   every lane of a
    3 x 20 kbp family (whole, truncated, and with its event buffer ending
    inside a staging batch) and over the first segmented dispatch of the
    8 x 1 Mbp and of the 8 x 5 Mbp joint runs; the search walk over a
    3 x 20 kbp subject-index group (whole, cut by max_iters=13 with
-   max_events=1, and overflowing an 8-slot event buffer) and over the
-   first segmented dispatch of the 8 x 1 Mbp subject-index run; print the
-   times, and each kernel's byte bound from the data of its run;
+   max_events=1, and overflowing an 8-slot and a 50-slot event buffer)
+   and over the first segmented dispatch of the 8 x 1 Mbp and of the
+   8 x 5 Mbp subject-index runs; print the times, the walks' counts and
+   each kernel's byte bound from the data of its run;
 4. one 1 Mbp subject's index built on the card and on the CPU: SA, LCP,
    words and cache equal; the build's peak bytes per padded index symbol
    at 1 Mbp and 5 Mbp;
@@ -130,17 +132,24 @@ def max_abs_err(a_list, b_list) -> int:
 
 
 def phase_flag_scan(dev):
+    """The flag scan against its plain version at every n, all, no and
+    10% flags, forward and reverse; timed at n = 2^24 (the 8 x 1 Mbp joint
+    block) and at the 8 x 5 Mbp joint block's padded length.  Returns
+    (kernel ms, plain ms, max_abs_err, bound ms) at n = 2^24."""
     from andix_torch.esa import scans
+    from andix_torch.esa.backend import bucket
 
     rng = np.random.default_rng(7)
-    timing = None
-    for n in (64, 333, 70001, 1 << 24):
+    timed = (1 << 24, bucket(8 * (2 * 5_000_000 + 2)))
+    timing = {}
+    for n in (64, 333, 4097, 70001) + timed:
         vals = torch.from_numpy(rng.integers(0, 100, n).astype(np.int32))
         pay = torch.from_numpy(rng.integers(0, n, n).astype(np.int32))
         cases = {"all": torch.ones(n, dtype=torch.bool),
                  "none": torch.zeros(n, dtype=torch.bool),
                  "p0.1": torch.from_numpy(rng.random(n) < 0.1)}
         v, p = vals.to(dev), pay.to(dev)
+        del vals, pay
         for label, fl in cases.items():
             f = fl.to(dev)
             for reverse in (False, True):
@@ -152,24 +161,27 @@ def phase_flag_scan(dev):
                     ref = scans.flag_scan_plain(v, f, p)
                 torch.cuda.synchronize()
                 err = max_abs_err(got, ref)
+                del got, ref
                 if err:
                     raise AssertionError(
                         f"flag_scan n={n} flags={label} reverse={reverse}: "
                         f"max_abs_err {err}")
         say(f"flag_scan n={n}: kernel == plain (all/none/10% flags, "
             f"forward and reverse)")
-        if n == 1 << 24:
+        if n in timed:
             f = cases["p0.1"].to(dev)
             ms = cuda_ms(lambda: scans.flag_scan(v, f, p), 20)
             plain_ms = cuda_ms(lambda: scans.flag_scan_plain(v, f, p), 3)
             # values, payload (int32) and flags (bool) in; k, g, sa, suf
             # (int32) out
             bound_ms = 25 * n / HBM_BYTES_PER_S * 1e3
-            timing = (ms, plain_ms, 0, bound_ms)
+            timing[n] = (ms, plain_ms, 0, bound_ms)
             say(f"flag_scan n={n} (10% flags): kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (25 B per "
                 f"position) = {100 * bound_ms / ms:.1f}% of the kernel")
-    return timing
+        del v, p, cases
+        torch.cuda.empty_cache()
+    return timing[1 << 24]
 
 
 def _walk_lanes(ctx, be, subjects, genomes, dev, k=1):
@@ -364,20 +376,23 @@ def _sx_walk_setup(dev, n_genomes, length, seed):
 
 
 def _compare_sx(label, index, lanes, iters, maxev, cache_k, ecap):
-    """Hold the search-walk kernel to its plain version on the same lanes;
-    returns (kernel, plain, max_abs_err, overflowed)."""
+    """Hold the search-walk kernel to its plain version on the same lanes
+    (with a full event buffer, each lane must keep a prefix of its chain);
+    returns (kernel, plain, max_abs_err, overflowed, the plain run's
+    counts)."""
     from andix_torch.chain import walk_sx
 
     def kernel():
         return walk_sx.chain_walk_flat_sx(*index, lanes, iters, maxev,
                                           cache_k, ecap)
 
-    def plain():
+    def plain(counts=None, cap=ecap):
         return walk_sx.chain_walk_flat_sx_plain(*index, lanes, iters, maxev,
-                                                cache_k, ecap)
+                                                cache_k, cap, counts)
 
     lb = lanes["row"].shape[0]
-    got, ref = kernel(), plain()
+    counts = {}
+    got, ref = kernel(), plain(counts)
     torch.cuda.synchronize()
     scal = [int(got[i]) for i in (4, 5, 6)]
     if scal != [int(ref[i]) for i in (4, 5, 6)] or scal[1] != (
@@ -385,11 +400,14 @@ def _compare_sx(label, index, lanes, iters, maxev, cache_k, ecap):
         raise AssertionError(f"walk_sx {label}: (ev_cnt, ovf, iters) {scal}"
                              f" != {[int(ref[i]) for i in (4, 5, 6)]}")
     err = max_abs_err(got[7:], ref[7:])
-    if not scal[1]:
-        for a, b in zip(_per_lane(got, lb), _per_lane(ref, lb)):
-            if a.shape != b.shape or (a != b).any():
-                raise AssertionError(f"walk_sx {label}: a lane's events "
-                                     f"differ")
+    whole = plain(cap=scal[0]) if scal[1] else ref
+    kept = _per_lane(got, lb)
+    if sum(a.shape[1] for a in kept) != min(scal[0], ecap):
+        raise AssertionError(f"walk_sx {label}: {ecap} slots not all kept")
+    for a, b in zip(kept, _per_lane(whole, lb)):
+        if a.shape[1] > b.shape[1] or (a != b[:, :a.shape[1]]).any() or (
+                not scal[1] and a.shape != b.shape):
+            raise AssertionError(f"walk_sx {label}: a lane's events differ")
     if err:
         raise AssertionError(f"walk_sx {label}: exit state max_abs_err "
                              f"{err}")
@@ -397,46 +415,62 @@ def _compare_sx(label, index, lanes, iters, maxev, cache_k, ecap):
         f"max_iters={iters} max_events={maxev} ecap={ecap}: kernel == plain "
         f"({scal[0]} events, overflow {bool(scal[1])}, {scal[2]} "
         f"iterations)")
-    return kernel, plain, err, bool(scal[1])
+    return kernel, plain, err, bool(scal[1]), counts
+
+
+def _sx_dispatch(dev, length):
+    """The 8 x ``length`` subject-index run's first segmented dispatch: 56
+    lanes x K cold segments in the driver's lane bucket, its
+    first chunk cap and event buffer; kernel == plain, both timed, the
+    plain run's counts and the complete byte bound printed.  Returns
+    (kernel ms, plain ms, max_abs_err, bound ms)."""
+    from andix_torch.chain import segmented
+
+    index, lanes, cache_k, ecap, k = _sx_walk_setup(dev, 8, length, 2026)
+    label = f"8x{length // 1_000_000}Mbp first dispatch"
+    kernel, plain, err, _, counts = _compare_sx(
+        f"{label} (K={k})", index, lanes, segmented.CHUNK_ITERS,
+        segmented.BIG, cache_k, ecap)
+    ms = cuda_ms(kernel, 5)
+    plain_ms = cuda_ms(plain, 1)
+    nbytes, bound_ms = sx_bound(counts, lanes["row"].shape[0])
+    probes = max(counts["probes"], 1)
+    say(f"chain_walk_flat_sx {label}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    say(f"  counts {json.dumps(counts)}; {counts['bis_steps'] / probes:.4f} "
+        f"bisection steps and {counts['words'] / probes:.4f} compared words "
+        f"a probe; {nbytes} B to move -> bound {bound_ms:.6f} ms "
+        f"({100 * bound_ms / ms:.3f}% of the kernel)")
+    del index, lanes
+    torch.cuda.empty_cache()
+    return ms, plain_ms, err, bound_ms
 
 
 def phase_walk_sx(dev):
-    from andix_torch.chain import segmented
-
     big = 1 << 28
     index, lanes, cache_k, _, _ = _sx_walk_setup(dev, 3, 20_000, 5)
     for iters, maxev, ecap in ((big, big, 1 << 16), (13, 1, 1 << 16),
-                               (big, big, 8)):
+                               (big, big, 8), (big, big, 50)):
         ovf = _compare_sx("3x20kbp", index, lanes, iters, maxev, cache_k,
                           ecap)[3]
-        if ovf != (ecap == 8):
+        if ovf != (ecap < 64):
             raise AssertionError(f"walk_sx 3x20kbp ecap={ecap}: overflow "
                                  f"{ovf}")
     del index, lanes
-    # the 8 x 1 Mbp subject-index run's first segmented dispatch: 56 lanes
-    # x K cold segments, the driver's first chunk cap and event buffer
-    index, lanes, cache_k, ecap, k = _sx_walk_setup(dev, 8, 1_000_000, 2026)
-    kernel, plain, err, _ = _compare_sx(
-        f"8x1Mbp first dispatch (K={k})", index, lanes,
-        segmented.CHUNK_ITERS, segmented.BIG, cache_k, ecap)
-    ms = cuda_ms(kernel, 5)
-    plain_ms = cuda_ms(plain, 1)
-    nbytes, bound_ms = sx_bound(kernel(), lanes)
-    say(f"chain_walk_flat_sx 8x1Mbp first dispatch: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({nbytes} B)")
-    del index, lanes
-    torch.cuda.empty_cache()
-    return (ms, plain_ms, err, bound_ms)
+    timing = _sx_dispatch(dev, 1_000_000)
+    _sx_dispatch(dev, 5_000_000)
+    return timing
 
 
-def sx_bound(out, lanes) -> tuple[int, float]:
-    """A lower bound on the bytes a search-walk dispatch must move, from
-    its outputs: per lane 36 B of entry fields read and 17 B of exit state
-    written, 16 B per event written, and the packed query words of the
-    positions the lanes walked (8 B per 16 symbols); the index entries its
-    searches read are not counted."""
-    walked = int((out[7].long() - lanes["pos0"].long()).clamp(min=0).sum())
-    nbytes = 53 * lanes["row"].shape[0] + 16 * int(out[4]) + walked // 2
+def sx_bound(counts, lanes: int) -> tuple[int, float]:
+    """Bytes a search-walk dispatch must move, from the plain run's counts
+    (each index entry counted once over the dispatch), and their time at
+    the card's memory rate: 4 B per suffix array, LCP and cache entry
+    read, 8 B per subject and query word read, 16 B per event written, and
+    per lane 36 B of entry fields read and 17 B of exit state written."""
+    nbytes = (4 * (counts["sa"] + counts["lcp"] + counts["cache"])
+              + 8 * (counts["sw"] + counts["qw"]) + 16 * counts["events"]
+              + 53 * lanes)
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 

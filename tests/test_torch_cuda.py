@@ -34,7 +34,8 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n", [1, 64, 333, 2048, 2049, 70001])
+@pytest.mark.parametrize("n", [1, 64, 333, 2048, 2049, 4095, 4096, 4097,
+                               70001, (1 << 24) + 7])
 @pytest.mark.parametrize("flags", ["all", "none", "random"])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_flag_scan_kernel_equals_plain(cuda, n, flags, reverse):
@@ -51,6 +52,58 @@ def test_flag_scan_kernel_equals_plain(cuda, n, flags, reverse):
     ref = scans.flag_scan(vals, fl, sa, reverse=reverse)  # CPU: plain
     for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)
+
+
+def _scan_inputs(n, seed, device):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, 100, n).astype(np.int32)).to(
+                device),
+            torch.from_numpy(rng.random(n) < 0.1).to(device),
+            torch.from_numpy(rng.integers(0, n, n).astype(np.int32)).to(
+                device))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_flag_scan_publishes_every_tile(cuda, reverse):
+    """After a launch every tile's status is inclusive, the counter has
+    handed out every tile id, and each tile's inclusive prefix is the
+    scan's state at its last position.  1025 tiles of 4096 positions, more
+    than the card holds at once, so tiles wait in the look-back."""
+    n = (1 << 22) + 7
+    tile = 4096
+    pad = (-n) % 16 if reverse else 0
+    tiles = -(-(n + pad) // tile)
+    status_ints = (tiles + 1 + 3) // 4 * 4
+    scratch = scans.flag_scan_scratch(n, reverse, cuda)
+    assert scratch.numel() == status_ints + 16 * tiles
+    v, f, p = _scan_inputs(n, 5, cuda)
+    got = scans._flag_scan_cuda(v, f, p, reverse, scratch)
+    sc = scratch.cpu()
+    assert (sc[:tiles] == 2).all() and int(sc[tiles]) == tiles
+    incl = sc[status_ints + 8 * tiles:].view(tiles, 8)
+    last = np.minimum(np.arange(1, tiles + 1) * tile - 1 - pad, n - 1)
+    mem = torch.from_numpy(n - 1 - last if reverse else last)
+    for field, out in zip((0, 2, 3, 4), got):
+        assert torch.equal(incl[:, field], out.cpu()[mem])
+    ref = scans.flag_scan(v.cpu(), f.cpu(), p.cpu(), reverse=reverse)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_flag_scan_twice_on_one_stream(cuda):
+    """Two launches in a row on one stream, sharing one scratch buffer
+    without a synchronize between them: each zeroes the status words
+    first, so both come out right."""
+    n = (1 << 20) + 3
+    scratch = scans.flag_scan_scratch(n, True, cuda)
+    first = _scan_inputs(n, 1, cuda)
+    second = _scan_inputs(n, 2, cuda)
+    got1 = scans._flag_scan_cuda(*first, True, scratch)
+    got2 = scans._flag_scan_cuda(*second, True, scratch)
+    for got, inp in ((got1, first), (got2, second)):
+        ref = scans.flag_scan(*(x.cpu() for x in inp), reverse=True)
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b)
 
 
 def _family():
@@ -168,6 +221,13 @@ def _sx_group(device, k, cache_k):
     (3, 13, 1, 1 << 15, 8),
     (1, 1 << 28, 1 << 28, 8, 8),
     (2, 1 << 28, 1 << 28, 1 << 15, 2),
+    # caps that stop lanes inside probes, and an event buffer ending inside
+    # a 32-event staging batch
+    (1, 8, 1 << 28, 1 << 15, 8),
+    (1, 24, 1 << 28, 1 << 15, 8),
+    (2, 56, 1 << 28, 1 << 15, 2),
+    (1, 200, 1 << 28, 1 << 15, 8),
+    (2, 1 << 28, 1 << 28, 50, 8),
 ])
 def test_walk_sx_kernel_equals_plain(cuda, k, iters, maxev, ecap, cache_k):
     index, lanes = _sx_group(cuda, k, cache_k)
@@ -182,10 +242,17 @@ def test_walk_sx_kernel_equals_plain(cuda, k, iters, maxev, ecap, cache_k):
     assert bool(got[5]) == (int(got[4]) > ecap)
     for a, b in zip(got[7:], ref[7:]):  # pos, lq, ls, ll, fin
         assert torch.equal(a, b)
+    lb = lanes["row"].shape[0]
     if not bool(ref[5]):
-        lb = lanes["row"].shape[0]
         for a, b in zip(_per_lane(got, lb), _per_lane(ref, lb)):
             assert a.shape == b.shape and (a == b).all()
+    else:  # the buffer is full, each lane keeping a prefix of its chain
+        whole = walk_sx.chain_walk_flat_sx_plain(*index, lanes, iters, maxev,
+                                                 cache_k, int(ref[4]))
+        kept = _per_lane(got, lb)
+        assert sum(a.shape[1] for a in kept) == ecap
+        for a, b in zip(kept, _per_lane(whole, lb)):
+            assert (a == b[:, :a.shape[1]]).all()
 
 
 def test_subject_index_build_card_equals_cpu(cuda):
@@ -210,6 +277,9 @@ def test_wrappers_refuse_bad_inputs(cuda):
         scans.flag_scan(v, f, v[:4])
     with pytest.raises(ValueError):
         scans.flag_scan(v, f.cpu(), v)
+    with pytest.raises(ValueError):  # 4 bytes off a 16-byte boundary
+        scans.flag_scan(torch.zeros(9, dtype=torch.int32, device=cuda)[1:],
+                        f, v)
     index, lanes = _sx_group(cuda, 1, 2)
     for bad in (dict(lanes, row=lanes["row"].cpu()),
                 dict(lanes, pos0=lanes["pos0"][:1])):
