@@ -21,6 +21,9 @@ Two schedules, picked by ``ANDIX_INDEX`` as in ``andix``:
 * subject index (slice 2): CLI -> per-subject index (SA, LCP, packed
   words, k-mer cache) -> segmented search walk (search-walk kernel) ->
   host counting -> estimators -> PHYLIP.
+
+Both run on every visible card, a worker thread each, and across
+processes under torchrun (slice 5: ``parallel``, ``_distributed``).
 """
 
 __version__ = "0.1.0"

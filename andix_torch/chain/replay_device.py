@@ -180,11 +180,10 @@ def _chain_walk_flat_cuda(isa, rm, text, mlun, ps, lanes, max_iters,
         raise ValueError("chain_walk_flat: mlun and ps must be 16-byte "
                          "aligned with a row length divisible by 4")
     lib = kernels.cuda_lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with kernels.launch_on(device) as stream:
         err = lib.andix_chain_walk_flat(*args, stream)
     kernels.check(err, "chain_walk_flat")
-    kernels.launches["chain_walk_flat"] += 1
+    kernels.count_launch("chain_walk_flat", device)
     return _walk_result(ev, counters, state, fin, ecap, unroll)
 
 

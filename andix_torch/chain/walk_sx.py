@@ -170,11 +170,10 @@ def _chain_walk_flat_sx_cuda(salcp, sw, cache2, nreal, qw, lanes, max_iters,
         ecap, device,
     )
     lib = kernels.cuda_lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with kernels.launch_on(device) as stream:
         err = lib.andix_chain_walk_sx(*args, stream)
     kernels.check(err, "chain_walk_flat_sx")
-    kernels.launches["chain_walk_flat_sx"] += 1
+    kernels.count_launch("chain_walk_flat_sx", device)
     return _walk_result(ev, counters, state, fin, ecap)
 
 

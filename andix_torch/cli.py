@@ -4,8 +4,13 @@ with andi and with ``andix``'s CLI (a copy of ``andix/cli.py``).
 Mirrors ``src/andi.c``: same option set, validation, warnings, exit codes,
 defaults.  Extensions beyond the reference: ``--seed`` (reproducible
 bootstrap — the reference's TODO at src/andi.c:278), ``--backend``
-(``auto``/``cuda`` run on the card, ``cpu`` runs the plain PyTorch
-versions; no fallback between them) and ``--block-size``.
+(``auto``/``cuda`` run on every visible card, ``cpu`` runs the plain
+PyTorch versions; no fallback between them) and ``--block-size``.
+
+Under ``torchrun --nproc-per-node=N -m andix_torch.cli ...`` the
+processes join one group (``_distributed``) before any card is touched,
+each takes one card, and rank 0 alone shows progress and prints; the
+other ranks print nothing.
 """
 
 from __future__ import annotations
@@ -16,9 +21,8 @@ import sys
 
 import numpy as np
 
-from . import fasta, output, pipeline
-from .device import DeviceError, resolve_device
-from .esa.backend import TorchBackend
+from . import _distributed, fasta, output, pipeline
+from .device import DeviceError, resolve_devices
 from .model import CountMatrix, model_average, model_bootstrap
 from .runtime import Context, Model, Progress
 from .sequence import Seq
@@ -196,12 +200,6 @@ def parse_args(argv: list[str], ctx: Context) -> tuple[list[str], int | None]:
     return file_names, None
 
 
-def select_backend(ctx: Context) -> TorchBackend:
-    """The torch backend on the device ``--backend`` names (no fallback:
-    a missing card is an error, see ``device.resolve_device``)."""
-    return TorchBackend(resolve_device(ctx.backend), threads=ctx.threads)
-
-
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     ctx = Context()
@@ -279,22 +277,37 @@ def main(argv: list[str] | None = None) -> int:
             "alignment instead."
         )
 
-    show_progress = (
+    joined = _distributed.maybe_init_distributed()
+    try:
+        return _compute_and_print(seqs, ctx)
+    finally:
+        if joined:
+            _distributed.shutdown()
+
+
+def _compute_and_print(seqs: list[Seq], ctx: Context) -> int:
+    """The grid on the devices ``--backend`` names (no fallback: a missing
+    card is an error, see ``device.resolve_devices``); rank 0 prints."""
+    n = len(seqs)
+    try:
+        devices = resolve_devices(ctx.backend)
+    except DeviceError as e:
+        print(f"{ctx.prog}: {e}", file=sys.stderr)
+        return 1
+    rank0 = _distributed.rank() == 0
+    show_progress = rank0 and (
         ctx.progress == Progress.ALWAYS
         or (ctx.progress == Progress.AUTO and sys.stderr.isatty())
     )
     meter = output.ProgressMeter(n, show_progress)
 
-    try:
-        backend = select_backend(ctx)
-    except DeviceError as e:
-        print(f"{ctx.prog}: {e}", file=sys.stderr)
-        return 1
     M = pipeline.calculate_matrix(
-        seqs, ctx, backend=backend, block_syms=ctx.block_syms,
-        progress=meter,
+        seqs, ctx, devices, block_syms=ctx.block_syms,
+        progress=meter if rank0 else None,
     )
     meter.done()
+    if not rank0:
+        return ctx.exit_code
 
     output.print_distances(M, seqs, n, True, ctx)
     if ctx.verbose >= 1:

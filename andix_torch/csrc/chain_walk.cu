@@ -125,6 +125,12 @@ extern "C" int andix_chain_walk_flat(
 // takes ISA + range-min
 extern "C" int andix_walk_diag_win() { return WALK_DIAG_WIN; }
 
+// the library's own CUDA runtime (linked statically) keeps its own
+// current device per host thread: set it to the launch's card
+extern "C" int andix_set_device(int device) {
+  return (int)cudaSetDevice(device);
+}
+
 extern "C" const char* andix_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -1,7 +1,10 @@
 """Device choice from the CLI's ``--backend`` flag.
 
-* ``auto`` and ``cuda``: the first CUDA device.  No card is an error —
-  there is no CPU fallback.
+* ``auto`` and ``cuda``: the CUDA cards.  No card is an error — there is
+  no CPU fallback.  ``resolve_devices`` gives every visible card
+  (``CUDA_VISIBLE_DEVICES`` narrows the list), as ``andix`` takes every
+  ``jax.devices()``; under a process group each process takes one card,
+  ``LOCAL_RANK % torch.cuda.device_count()`` (torchrun's layout).
 * ``cpu``: the kernels' plain PyTorch versions on the CPU (the tests).
 * ``jax`` and ``numpy`` name the reference package's backends and are
   refused.
@@ -11,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from . import _distributed
+
 BACKENDS = ("auto", "cuda", "cpu")
 
 
@@ -18,7 +23,8 @@ class DeviceError(RuntimeError):
     """The requested backend cannot run here."""
 
 
-def resolve_device(backend: str) -> torch.device:
+def resolve_devices(backend: str) -> list[torch.device]:
+    """The devices this process runs on, in worker order."""
     if backend in ("auto", "cuda"):
         if not torch.cuda.is_available():
             raise DeviceError(
@@ -26,11 +32,30 @@ def resolve_device(backend: str) -> torch.device:
                 f"found; pass --backend cpu to run the plain PyTorch "
                 f"versions on the CPU."
             )
-        return torch.device("cuda", torch.cuda.current_device())
+        count = torch.cuda.device_count()
+        if _distributed.world_size() > 1:
+            return [torch.device("cuda", _distributed.local_rank() % count)]
+        return [torch.device("cuda", i) for i in range(count)]
     if backend == "cpu":
-        return torch.device("cpu")
+        return [torch.device("cpu")]
     raise DeviceError(
         f"unknown backend '{backend}'; expected one of "
         f"{', '.join(BACKENDS)} (the 'jax' and 'numpy' backends belong to "
         f"the andix package)."
     )
+
+
+def ranks_on(device: torch.device) -> int:
+    """The processes of this host whose workers run in ``device``'s memory:
+    1 in a single-process run; under a process group every local rank for
+    the CPU, and for a card the local ranks that take it
+    (``LOCAL_RANK % device_count``, as ``resolve_devices``).  The local
+    ranks are torchrun's ``LOCAL_WORLD_SIZE``, else every rank."""
+    world = _distributed.world_size()
+    if world == 1:
+        return 1
+    local = _distributed.local_world_size()
+    if device.type != "cuda":
+        return local
+    count = torch.cuda.device_count()
+    return max(1, sum(1 for r in range(local) if r % count == device.index))

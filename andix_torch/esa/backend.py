@@ -67,17 +67,19 @@ def pad_symbols(sym: np.ndarray, padded_n: int) -> np.ndarray:
     return np.concatenate([sym, pad])
 
 
-def prof(label: str, t0: float, device: torch.device | None = None) -> float:
-    """Append a phase time to ANDIX_PROF_FILE (no-op when unset); with a
-    CUDA ``device`` the phase is synchronized first."""
+def prof(label: str, t0: float, device: torch.device) -> float:
+    """Append a phase time on ``device`` to ANDIX_PROF_FILE (no-op when
+    unset), as one line prefixed with the device, written in one call so
+    the lines of worker threads do not interleave; on a CUDA device the
+    phase is synchronized first."""
     path = os.environ.get("ANDIX_PROF_FILE")
     if not path:
         return t0
-    if device is not None and device.type == "cuda":
+    if device.type == "cuda":
         torch.cuda.synchronize(device)
     t1 = time.time()
     with open(path, "a") as f:
-        f.write(f"{label}: {t1 - t0:.6f}s\n")
+        f.write(f"[{device}] {label}: {t1 - t0:.6f}s\n")
     return time.time()
 
 
@@ -184,9 +186,14 @@ def _query_slots(isa: torch.Tensor, q_start: np.ndarray, q_off: np.ndarray,
 
 
 class TorchBackend:
-    def __init__(self, device: torch.device, threads: int = 0):
+    """The block backend on one device; ``share`` is the number of workers
+    that run on the device at once, which split its free memory."""
+
+    def __init__(self, device: torch.device, threads: int = 0,
+                 share: int = 1):
         self.device = torch.device(device)
         self.threads = threads
+        self.share = share
 
     def prepare_block(self, layout: BlockLayout) -> BlockContext:
         dev = self.device
@@ -217,12 +224,12 @@ class TorchBackend:
 
     def replay_group(self, n_block_subjects: int, qb: int) -> int:
         """Subjects per chain-walk group: as many as the [Sg, QB] x 2 int32
-        tables fit in half the free device memory (all of them on the
-        CPU), balanced across groups."""
+        tables fit in half this worker's share of the free device memory
+        (all of them on the CPU), balanced across groups."""
         if self.device.type != "cuda":
             return max(1, n_block_subjects)
         free, _ = torch.cuda.mem_get_info(self.device)
-        fit = max(1, (free // 2) // (8 * max(qb, 1)))
+        fit = max(1, (free // 2 // self.share) // (8 * max(qb, 1)))
         if fit >= n_block_subjects:
             return max(1, n_block_subjects)
         k = -(-n_block_subjects // fit)
@@ -324,7 +331,7 @@ class TorchBackend:
             [subjects[genome].rs for genome in subject_genomes],
             thresholds, ctx.query_blob, q_off_pad, model_kind, self.threads,
         )
-        prof(f"host count from {ev_q.shape[0]} events", t0)
+        prof(f"host count from {ev_q.shape[0]} events", t0, dev)
 
         out: dict[int, dict[int, CountMatrix]] = {}
         for k, genome in enumerate(subject_genomes):

@@ -130,15 +130,14 @@ def _flag_scan_cuda(values, flags, sa_vals, reverse, scratch=None):
                     ("sa_vals", sa_vals), ("scratch", scratch)):
         if t.data_ptr() % 16:
             raise ValueError(f"flag_scan: {name} must be 16-byte aligned")
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with kernels.launch_on(values.device) as stream:
         err = lib.andix_flag_scan(
             values.data_ptr(), flags.data_ptr(), sa_vals.data_ptr(),
             ctypes.c_int64(n), 1 if reverse else 0, scratch.data_ptr(),
             *(o.data_ptr() for o in outs), stream,
         )
     kernels.check(err, "flag_scan")
-    kernels.launches["flag_scan"] += 1
+    kernels.count_launch("flag_scan", values.device)
     return tuple(outs)
 
 

@@ -15,7 +15,10 @@ machine without a card (each at the kernel's tile or window sizes and at
 tiny ones).
 
 ``launches`` counts, per kernel wrapper, the calls that launched the
-kernel on the card (the plain versions never count).
+kernel on the card (the plain versions never count); ``launches_by_card``
+counts them per card index.  Both are bumped under a lock, and the
+library is built and loaded under one, so worker threads on several cards
+may launch at once.
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+from contextlib import contextmanager
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -38,9 +45,12 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 
 launches = {"flag_scan": 0, "chain_walk_flat": 0, "chain_walk_flat_sx": 0}
+launches_by_card: dict[int, dict[str, int]] = {}
 
 _cuda_lib = None
 _cpu_twin = None
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 # andix_chain_walk_flat's C signature (walk_lane.cuh, chain_walk.cu): the
 # ISA, the text bytes and their length, the range-min tables and sizes,
@@ -59,8 +69,29 @@ _SX_ARGTYPES = ([_P] * 5 + [ctypes.c_int64] * 3 + [_I] + [_P] * 9 + [_I] * 5
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+        launches_by_card.clear()
+
+
+def count_launch(name: str, device: torch.device) -> None:
+    """One launch of kernel ``name`` on ``device`` (a CUDA device)."""
+    with _count_lock:
+        launches[name] += 1
+        card = launches_by_card.setdefault(device.index,
+                                           dict.fromkeys(launches, 0))
+        card[name] += 1
+
+
+@contextmanager
+def launch_on(device: torch.device):
+    """Make ``device`` current for torch and for the kernel library, which
+    links its own CUDA runtime, on this thread; yields torch's current
+    stream there as the handle the C entries take."""
+    with torch.cuda.device(device):
+        check(cuda_lib().andix_set_device(device.index), "cudaSetDevice")
+        yield torch.cuda.current_stream().cuda_stream
 
 
 def _nvcc() -> str:
@@ -139,23 +170,30 @@ def build_cuda() -> str:
 def cuda_lib():
     """The loaded kernel library (built on first call)."""
     global _cuda_lib
-    if _cuda_lib is None:
-        lib = ctypes.CDLL(build_cuda())
-        lib.andix_flag_scan.argtypes = [_P, _P, _P, ctypes.c_int64, _I, _P,
-                                        _P, _P, _P, _P, _P]
-        lib.andix_flag_scan.restype = _I
-        lib.andix_flag_scan_scratch_ints.argtypes = [ctypes.c_int64, _I]
-        lib.andix_flag_scan_scratch_ints.restype = ctypes.c_int64
-        lib.andix_chain_walk_flat.argtypes = _WALK_ARGTYPES + [_P]
-        lib.andix_chain_walk_flat.restype = _I
-        lib.andix_walk_diag_win.argtypes = []
-        lib.andix_walk_diag_win.restype = _I
-        lib.andix_chain_walk_sx.argtypes = _SX_ARGTYPES + [_P]
-        lib.andix_chain_walk_sx.restype = _I
-        lib.andix_cuda_error_string.argtypes = [_I]
-        lib.andix_cuda_error_string.restype = ctypes.c_char_p
-        _cuda_lib = lib
+    with _load_lock:
+        if _cuda_lib is None:
+            _cuda_lib = _load_cuda()
     return _cuda_lib
+
+
+def _load_cuda():
+    lib = ctypes.CDLL(build_cuda())
+    lib.andix_flag_scan.argtypes = [_P, _P, _P, ctypes.c_int64, _I, _P, _P,
+                                    _P, _P, _P, _P]
+    lib.andix_flag_scan.restype = _I
+    lib.andix_flag_scan_scratch_ints.argtypes = [ctypes.c_int64, _I]
+    lib.andix_flag_scan_scratch_ints.restype = ctypes.c_int64
+    lib.andix_chain_walk_flat.argtypes = _WALK_ARGTYPES + [_P]
+    lib.andix_chain_walk_flat.restype = _I
+    lib.andix_walk_diag_win.argtypes = []
+    lib.andix_walk_diag_win.restype = _I
+    lib.andix_chain_walk_sx.argtypes = _SX_ARGTYPES + [_P]
+    lib.andix_chain_walk_sx.restype = _I
+    lib.andix_set_device.argtypes = [_I]
+    lib.andix_set_device.restype = _I
+    lib.andix_cuda_error_string.argtypes = [_I]
+    lib.andix_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(err: int, name: str) -> None:
@@ -168,24 +206,28 @@ def check(err: int, name: str) -> None:
 def cpu_twin():
     """The kernels' tile and lane bodies built for the host with g++."""
     global _cpu_twin
-    if _cpu_twin is None:
-        sources = [os.path.join(CSRC, s) for s in CPU_TWIN_SOURCES]
-        if _stale(CPU_TWIN_LIB, sources):
-            _compile(["g++", "-std=c++17", "-O2", "-shared", "-fPIC"],
-                     sources, CPU_TWIN_LIB)
-        lib = ctypes.CDLL(CPU_TWIN_LIB)
-        lib.andix_flag_scan_cpu_tiles.argtypes = [ctypes.c_int64, _I, _I]
-        lib.andix_flag_scan_cpu_tiles.restype = ctypes.c_int64
-        lib.andix_flag_scan_cpu.argtypes = [_P, _P, _P, ctypes.c_int64, _I,
-                                            _P, _I, _P, _P, _P, _P, _P]
-        lib.andix_flag_scan_cpu.restype = _I
-        lib.andix_chain_walk_flat_cpu.argtypes = _WALK_ARGTYPES + [_I]
-        lib.andix_chain_walk_flat_cpu.restype = _I
-        lib.andix_walk_lce_cpu.argtypes = ([_P, _P, ctypes.c_int64]
-                                           + [_P] * 7 + [_I] * 4 + [_P] * 4
-                                           + [_I])
-        lib.andix_walk_lce_cpu.restype = _I
-        lib.andix_chain_walk_sx_cpu.argtypes = _SX_ARGTYPES + [_I]
-        lib.andix_chain_walk_sx_cpu.restype = _I
-        _cpu_twin = lib
+    with _load_lock:
+        if _cpu_twin is None:
+            _cpu_twin = _load_cpu_twin()
     return _cpu_twin
+
+
+def _load_cpu_twin():
+    sources = [os.path.join(CSRC, s) for s in CPU_TWIN_SOURCES]
+    if _stale(CPU_TWIN_LIB, sources):
+        _compile(["g++", "-std=c++17", "-O2", "-shared", "-fPIC"], sources,
+                 CPU_TWIN_LIB)
+    lib = ctypes.CDLL(CPU_TWIN_LIB)
+    lib.andix_flag_scan_cpu_tiles.argtypes = [ctypes.c_int64, _I, _I]
+    lib.andix_flag_scan_cpu_tiles.restype = ctypes.c_int64
+    lib.andix_flag_scan_cpu.argtypes = [_P, _P, _P, ctypes.c_int64, _I, _P,
+                                        _I, _P, _P, _P, _P, _P]
+    lib.andix_flag_scan_cpu.restype = _I
+    lib.andix_chain_walk_flat_cpu.argtypes = _WALK_ARGTYPES + [_I]
+    lib.andix_chain_walk_flat_cpu.restype = _I
+    lib.andix_walk_lce_cpu.argtypes = ([_P, _P, ctypes.c_int64] + [_P] * 7
+                                       + [_I] * 4 + [_P] * 4 + [_I])
+    lib.andix_walk_lce_cpu.restype = _I
+    lib.andix_chain_walk_sx_cpu.argtypes = _SX_ARGTYPES + [_I]
+    lib.andix_chain_walk_sx_cpu.restype = _I
+    return lib

@@ -12,22 +12,33 @@ Two schedules with byte-identical output, picked by ``ANDIX_INDEX``
   subject, every query streamed past it through the search walk.
 
 ``auto`` keeps ``andix``'s rule: the subject index when the joint plan
-has more than one block or chunks its queries.  Rows the subject index
-cannot finish go to the joint schedule.  Low-memory mode (``-l``) is
-single-subject blocks or index groups.
+has more than one block or chunks its queries, in a single-process run.
+Rows the subject index cannot finish go to the joint schedule.
+Low-memory mode (``-l``) is single-subject blocks or index groups.
+
+With more than one worker (several devices, or several processes under
+torchrun) the joint schedule runs ``andix``'s sharded grid
+(``_process_sharded``): subject rows in contiguous shares, one per worker,
+each run on its device through ``_process_block``; the subject-index
+schedule runs one worker per device over round-robin groups.  The output
+is byte for byte the one-device output.
 
 Checkpoint rows (``TileCheckpoint``) keep ``andix``'s format 3 and
 fingerprint, so a row written by either package resumes under the other.
+Under a process group rank 0 alone reads and writes them.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 
 import numpy as np
 import torch
 
+from . import _distributed, parallel
+from .device import ranks_on
 from .esa import joint
 from .model import CountMatrix
 from .output import ProgressMeter
@@ -73,29 +84,40 @@ def make_blocks(
 BYTES_PER_PADDED_SYM = 128
 
 
-def memory_budget(device: torch.device) -> int:
-    """Bytes a block may use: 90% of the card's free memory, or of the
-    host's physical memory for the CPU backend."""
+def memory_budget(device: torch.device, share: int = 1) -> int:
+    """Bytes a block may use: 90% of the card's free memory, or half the
+    host's physical memory for the CPU backend, split evenly between the
+    ``share`` workers that run on the device."""
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
-        return int(free * 0.9)
+        return int(free * 0.9) // share
     return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
-               * 0.5)
+               * 0.5) // share
+
+
+def worker_memory(devices: list[torch.device]) -> tuple[list[int], int]:
+    """Per worker of ``devices`` (a device listed k times carries k
+    workers), the workers of this host that split its device's memory:
+    this process's workers on the device times the processes on it
+    (``device.ranks_on``); and the budget every worker plans with, the
+    smallest worker's, so that all workers make the same plan."""
+    shares = [devices.count(d) * ranks_on(d) for d in devices]
+    return shares, min(memory_budget(d, s) for d, s in zip(devices, shares))
 
 
 def device_plan(
-    block_syms: int, subjects: list[Subject], device: torch.device
+    block_syms: int, subjects: list[Subject], budget: int
 ) -> tuple[int, int]:
     """Memory-aware (block_syms, max_query_syms).  Blocks are capped at the
     largest shape bucket whose padded footprint (BYTES_PER_PADDED_SYM per
-    padded symbol) fits ``memory_budget``; when the query total no longer
+    padded symbol) fits ``budget`` bytes; when the query total no longer
     fits alongside a subject, queries are chunked at half the cap.
     ANDIX_MAX_QUERY_SYMS overrides the chunk bound."""
     from .esa.backend import bucket
 
     largest = max(s.len + 1 for s in subjects)
     query_total = sum((s.len - 1) // 2 + 1 for s in subjects)
-    budget_syms = memory_budget(device) // BYTES_PER_PADDED_SYM
+    budget_syms = budget // BYTES_PER_PADDED_SYM
     cap = b = 1 << 16
     while True:
         for cand in (b + b // 2, b * 2):
@@ -231,13 +253,21 @@ def _process_block(
     progress,
     max_query_syms: int,
     ckpt: "TileCheckpoint | None" = None,
+    qchunks: list[list[int]] | None = None,
 ) -> None:
+    """One joint block's rows, query chunk by query chunk.  ``qchunks``
+    (the sharded grid's chunks of all genomes) replaces the block's own
+    chunking; the block's genomes are dropped from them."""
     n = len(seqs)
     row_acc: dict[int, dict[int, CountMatrix]] = {i: {} for i in block}
+    if qchunks is None:
+        qchunks = _query_chunks(block, n, seqs, max_query_syms)
+    else:
+        in_block = set(block)
+        qchunks = [c for c in ([j for j in chunk if j not in in_block]
+                               for chunk in qchunks) if c] or [[]]
 
-    for chunk_idx, qchunk in enumerate(
-        _query_chunks(block, n, seqs, max_query_syms)
-    ):
+    for chunk_idx, qchunk in enumerate(qchunks):
         subject_rs = {i: subjects[i].rs for i in block}
         query_seqs = {j: seqs[j].data for j in qchunk}
         layout = joint.build_block(subject_rs, query_seqs)
@@ -273,18 +303,26 @@ def _process_block(
 def calculate_matrix(
     seqs: list[Seq],
     ctx: Context,
-    backend,
+    devices: list[torch.device],
     block_syms: int | None = None,
     progress: ProgressMeter | None = None,
 ) -> list[list[CountMatrix]]:
     """Fill the full n×n count-matrix grid (reference
     ``calculate_distances`` compute phase, src/process.c:230-251) on
-    ``backend``'s device (an ``esa.backend.TorchBackend``)."""
+    ``devices``, the devices this process runs workers on
+    (``device.resolve_devices``); a device listed k times carries k
+    workers, which split its memory (``worker_memory``).  Under a process
+    group (``_distributed``) rank 0's grid is complete; the other ranks'
+    hold the rows they computed."""
+    from .esa.backend import TorchBackend
+
     block_syms = block_syms if block_syms is not None else ctx.block_syms
     n = len(seqs)
+    devices = list(devices)
+    world = _distributed.world_size()
     subjects = [subject_init(s, ctx.anchor_p_value) for s in seqs]
-    block_syms, max_query_syms = device_plan(block_syms, subjects,
-                                             backend.device)
+    shares, budget = worker_memory(devices)
+    block_syms, max_query_syms = device_plan(block_syms, subjects, budget)
 
     M: list[list[CountMatrix]] = [[None] * n for _ in range(n)]  # type: ignore
     for i in range(n):
@@ -292,11 +330,12 @@ def calculate_matrix(
         diag.counts[0] = 9
         M[i][i] = diag
 
-    # tile-level resume: rows already on disk skip recomputation
+    # tile-level resume: rows already on disk skip recomputation; rank 0
+    # alone reads and writes them, and its rows left to do hold everywhere
     ckpt_dir = ctx.checkpoint_dir or os.environ.get("ANDIX_CHECKPOINT_DIR")
     ckpt = (
         TileCheckpoint(ckpt_dir, checkpoint_fingerprint(seqs, ctx))
-        if ckpt_dir
+        if ckpt_dir and _distributed.rank() == 0
         else None
     )
     todo = list(range(n))
@@ -312,27 +351,44 @@ def calculate_matrix(
                 if progress is not None:
                     progress.advance(n - 1)
         todo = remaining
+    todo = parallel.broadcast(todo)
     if not todo:
         return M
 
     mode = os.environ.get("ANDIX_INDEX", "auto")
     if mode == "auto":
+        # andix's rule, with its process term: several processes keep the
+        # joint schedule (every process would run every subject-index row)
         probe_blocks = make_blocks(
             [subjects[i] for i in todo], block_syms, False,
             query_base=max_query_syms,
         )
         query_total = sum(s.len + 1 for s in seqs)
-        use_sx = len(probe_blocks) > 1 or query_total > max_query_syms
+        use_sx = ((len(probe_blocks) > 1 or query_total > max_query_syms)
+                  and world == 1)
     else:
         use_sx = mode == "subject"
     if use_sx:
         from .subject_pipeline import process_subject_index
 
         todo = process_subject_index(todo, seqs, subjects, ctx, M, progress,
-                                     ckpt, backend.device)
+                                     ckpt, devices)
         if not todo:
             return M
 
+    worker_counts = parallel.all_gather(len(devices))
+    if (
+        sum(worker_counts) > 1
+        and not ctx.low_memory
+        and len(todo) > 1
+        and os.environ.get("ANDIX_SHARDED", "1") != "0"
+    ):
+        _process_sharded(todo, seqs, subjects, ctx, M, progress, ckpt,
+                         devices, shares, worker_counts, block_syms,
+                         max_query_syms)
+        return M
+
+    backend = TorchBackend(devices[0], ctx.threads, share=shares[0])
     blocks = [
         [todo[k] for k in blk]
         for blk in make_blocks(
@@ -346,3 +402,66 @@ def calculate_matrix(
             max_query_syms, ckpt=ckpt,
         )
     return M
+
+
+# one line per worker of the last sharded grid: its rows and wall seconds
+LAST_BALANCE: list[str] = []
+
+
+def _process_sharded(todo, seqs, subjects, ctx: Context, M, progress, ckpt,
+                     devices, shares, worker_counts, block_syms: int,
+                     max_query_syms: int) -> None:
+    """The sharded pair grid (``andix``'s ``_process_sharded``): the rows
+    in ``todo`` split into contiguous shares, one per worker of the global
+    worker list (ranks in order, each rank's ``devices`` in order), and
+    query chunks cut from all genomes, as every share's chunks in
+    ``andix``.  Each worker runs its share on its device through
+    ``_process_block``, split further by ``make_blocks`` where the share
+    does not fit one block of the plan; a worker without rows does
+    nothing.  Under a process group rank 0 gathers every rank's rows and
+    alone writes their checkpoint rows.  ``shares`` is each worker's split
+    of its device's memory (``worker_memory``)."""
+    from .esa.backend import TorchBackend
+
+    n = len(seqs)
+    first = sum(worker_counts[:_distributed.rank()])
+    rows_of = [
+        [todo[k] for k in blk]
+        for blk in parallel.round_robin_blocks(len(todo), sum(worker_counts))
+    ][first: first + len(devices)]
+    qchunks = _query_chunks([], n, seqs, max_query_syms)
+    processes = len(worker_counts)
+    meter = parallel.LockedProgress(progress) if progress is not None else None
+
+    def work(device, share, rows):
+        backend = TorchBackend(device, ctx.threads, share=share)
+        for blk in make_blocks([subjects[i] for i in rows], block_syms,
+                               False, query_base=max_query_syms):
+            _process_block([rows[k] for k in blk], seqs, subjects, ctx,
+                           backend, M, meter, max_query_syms,
+                           ckpt=ckpt if processes == 1 else None,
+                           qchunks=qchunks)
+
+    jobs = [(first + w, d, s, r)
+            for w, (d, s, r) in enumerate(zip(devices, shares, rows_of)) if r]
+    parallel.load_libraries(devices)
+    walls = parallel.run_workers([functools.partial(work, d, s, r)
+                                  for _, d, s, r in jobs])
+    LAST_BALANCE[:] = [
+        f"worker {w} on {d}: rows {r[0]}..{r[-1]}, {wall:.3f} s"
+        for (w, d, _, r), wall in zip(jobs, walls)
+    ]
+    if processes == 1:
+        return
+    mine = {i for rows in rows_of for i in rows}
+    rows = parallel.gather_rows(
+        {i: {j: M[i][j] for j in range(n) if j != i} for i in mine}, n)
+    if rows is None:
+        return
+    for i, row in rows.items():
+        for j, cm in row.items():
+            M[i][j] = cm
+        if progress is not None and i not in mine:
+            progress.advance(len(row))
+        if ckpt is not None:
+            ckpt.save_row(i, n, row)

@@ -24,17 +24,28 @@ A group the schedule cannot finish goes back to the caller, which runs
 it on the joint schedule: after an event-buffer overflow the group is
 walked again with a 4x larger buffer, at most twice; when the segmented
 resolve does not converge it goes back at once (a larger buffer would not
-change the walk).  One device, no threads.
+change the walk).
+
+With several devices in a single-process run (``andix``'s per-device
+drivers, subject_pipeline.py:250-303) the groups are dealt round-robin to
+``min(devices, groups)`` worker threads, one per device, each with its own
+query words on its device; ``ANDIX_SX_MESH=0`` keeps one worker.  Every
+worker plans with the smallest worker's memory budget, so all build the
+same caches.  ``LAST_BALANCE`` keeps each group's worker and events and
+each worker's wall.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import threading
 import time
 
 import numpy as np
 import torch
 
+from . import _distributed, parallel
 from .chain import events as chain_events
 from .chain import segmented
 from .chain.replay_device import fetch_walk
@@ -43,6 +54,9 @@ from .esa import joint, subject_index
 from .esa.backend import bucket, pad_symbols, prof
 from .model import CountMatrix
 from .runtime import Context
+
+# per worker, its groups and their events, then its wall, in the last run
+LAST_BALANCE: list[str] = []
 
 # resident device bytes per padded index symbol: SA 4 + LCP 4 + words 0.5
 IDX_BYTES_PER_SYM = 8.5
@@ -173,11 +187,12 @@ def _event_cap(total_q: int) -> int:
 
 
 def process_subject_index(todo: list[int], seqs, subjects, ctx: Context, M,
-                          progress, ckpt, device) -> list[int]:
+                          progress, ckpt, devices) -> list[int]:
     """Run the subject-index schedule for the ``todo`` subject rows on
-    ``device``; returns the rows it could not complete, for the caller's
-    joint schedule."""
-    from .pipeline import memory_budget
+    ``devices`` (one worker each, see the module docstring; a device listed
+    k times carries k workers); returns the rows it could not complete,
+    for the caller's joint schedule."""
+    from .pipeline import worker_memory
 
     n = len(seqs)
     total_q = sum(s.len + 1 for s in seqs)
@@ -185,7 +200,11 @@ def process_subject_index(todo: list[int], seqs, subjects, ctx: Context, M,
         # the packed query blob is int32-addressed; larger runs keep the
         # joint schedule, which chunks queries
         return list(todo)
-    budget = memory_budget(device)
+    mesh = (len(devices) > 1 and _distributed.world_size() == 1
+            and os.environ.get("ANDIX_SX_MESH", "1") != "0")
+    if not mesh:
+        devices = devices[:1]
+    budget = worker_memory(devices)[1]
     cache_k = cache_depth(subjects, len(todo), budget)
 
     raw_blob, q_off, qw_base = _host_query_blob(seqs, n)
@@ -197,20 +216,43 @@ def process_subject_index(todo: list[int], seqs, subjects, ctx: Context, M,
     q_off_pad = np.full(gp + 1, q_off[-1], dtype=np.int64)
     q_off_pad[: n + 1] = q_off
     ecap = _event_cap(int(q_off[-1]))
+    # the packed query words (``_pack_query_words``): the queries, one
+    # sentinel each and 16 to 31 more, 16 symbols in 8 bytes
+    qw_syms = int(q_off[-1]) + n
+    qw_syms += (-qw_syms) % 16 + 16
 
-    t0 = time.time()
-    qw = _pack_query_words(raw_blob, q_off, n, device)
-    prof("sx: query words H2D", t0, device)
-
-    leftovers: list[int] = []
     groups = plan_groups(subjects, todo, ctx.low_memory, cache_k, budget,
-                         qw.numel() * 8 + 16 * ecap)
-    for group in groups:
-        if not _process_group(group, qw, subjects, ctx, M, progress, ckpt,
-                              cache_k, ecap, n, gp, q_len_row, qw_base_pad,
-                              q_off, q_off_pad, raw_blob, device):
-            leftovers.extend(group)
-    return leftovers
+                         qw_syms // 2 + 16 * ecap)
+    n_workers = min(len(devices), len(groups))
+    leftovers: list[int] = []
+    lock = threading.Lock()
+    meter = parallel.LockedProgress(progress) if progress is not None else None
+    LAST_BALANCE.clear()
+
+    def work(w: int) -> None:
+        device = devices[w]
+        t0 = time.time()
+        qw = _pack_query_words(raw_blob, q_off, n, device)
+        prof("sx: query words H2D", t0, device)
+        for group in groups[w::n_workers]:
+            events = _process_group(group, qw, subjects, ctx, M, meter, ckpt,
+                                    cache_k, ecap, n, gp, q_len_row,
+                                    qw_base_pad, q_off, q_off_pad, raw_blob,
+                                    device)
+            status = ("to the joint schedule" if events is None
+                      else f"{events} events")
+            with lock:
+                if events is None:
+                    leftovers.extend(group)
+                LAST_BALANCE.append(f"worker {w} on {device} group"
+                                    f"[{group[0]}..{group[-1]}]: {status}")
+
+    parallel.load_libraries(devices[:n_workers])
+    walls = parallel.run_workers([functools.partial(work, w)
+                                  for w in range(n_workers)])
+    LAST_BALANCE.extend(f"worker {w} on {devices[w]}: wall {wall:.3f} s"
+                        for w, wall in enumerate(walls))
+    return sorted(leftovers)
 
 
 def _host_query_blob(seqs, n):
@@ -242,9 +284,10 @@ def _pack_query_words(raw_blob, q_off, n, device) -> torch.Tensor:
 
 def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
                    ecap, n, gp, q_len_row, qw_base_pad, q_off, q_off_pad,
-                   raw_blob, device) -> bool:
+                   raw_blob, device) -> int | None:
     """Build, walk and count one subject group and publish its rows;
-    False when the group goes back to the joint schedule."""
+    returns its event count, or None when the group goes back to the joint
+    schedule."""
     t0 = time.time()
     salcp, sw, cache2, nreal = _build_group_index(group, subjects, cache_k,
                                                   device)
@@ -294,7 +337,7 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
         if not overflowed or escalation == 2:
             # the resolve did not converge (a wider buffer would walk the
             # same way), or the buffer still overflowed
-            return False
+            return None
         ecap_now *= 4
     del salcp, sw, cache2
     lanes, ev_q, ev_s, ev_len = res
@@ -305,7 +348,7 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
         lanes, ev_q, ev_s, ev_len, sg, gp, subjects_rs, thresholds,
         raw_blob, q_off_pad, ctx.model, ctx.threads,
     )
-    prof(f"sx: host count from {ev_q.shape[0]} events", t0)
+    prof(f"sx: host count from {ev_q.shape[0]} events", t0, device)
 
     for k, i in enumerate(group):
         row = {}
@@ -320,4 +363,4 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
             progress.advance(len(row))
         if ckpt is not None:
             ckpt.save_row(i, n, row)
-    return True
+    return int(ev_q.shape[0])

@@ -32,14 +32,31 @@ line each; any failed phase raises and the script exits non-zero:
    counts (each of the joint path's > 0), and a check of the matrix
    against the simulated rates; then the same family under
    ``ANDIX_INDEX=subject``, byte-identical;
-7. the slice's full-size path: 8 x 5 Mbp (bacterial genome length)
-   through the CLI under ``ANDIX_INDEX=subject`` and ``ANDIX_INDEX=joint``:
+7. the full-size path: 8 x 5 Mbp (bacterial genome length) through the
+   CLI under ``ANDIX_INDEX=subject`` and ``ANDIX_INDEX=joint``:
    byte-identical PHYLIP, wall, phases, peak memory and launch counts of
    each (the subject run launches the search walk and never the joint
-   walk), and the matrix check.
+   walk), and the matrix check;
+8. the pair grid over several workers.  It prints
+   ``torch.cuda.device_count()`` and the worker layout: with two or more
+   cards the workers are the cards and the CLI runs with every card
+   visible; with one card two workers share cuda:0 through
+   ``pipeline.calculate_matrix(devices=...)`` (peer placement is then not
+   exercised).  The 8 x 5 Mbp joint grid (sharded, a contiguous share of
+   subjects a worker) and the subject-index schedule under
+   ``ANDIX_GROUP_SUBJECTS=4`` (two groups, two workers) each run four
+   times in turns, one worker (this call's baseline), all workers, all
+   workers, one worker; every run must print phase 7's bytes, and every
+   worker's card must launch the schedule's kernels; printed: the walls,
+   and per run over several workers each card's launch counts and peak
+   memory and each worker's wall (``LAST_BALANCE``).  Then ``python -m
+   andix_torch.cli`` as two processes at 8 x 1 Mbp (torchrun's variables,
+   gloo on loopback; rank r on card r % device_count): both exit 0, rank
+   0 prints phase 6's bytes and rank 1 nothing.
 
 The line before the last is the kernel table as one JSON object; the
-last line is ``{"ok": true, "device": {...}}``.
+last line is ``{"ok": true, "device": {...}}``.  On a host with several
+cards the same command runs phase 8 over all of them.
 
 ``bound_ms`` is the least time the card could take for a kernel's work:
 the bytes it must move (each input read once, each output written once;
@@ -662,7 +679,7 @@ def phase_main_path(tmp, card):
         raise AssertionError(f"8x1Mbp subject run launches {sx_launches}")
     say("  8x1Mbp: ANDIX_INDEX=subject PHYLIP == joint schedule PHYLIP, "
         f"{len(out)} bytes")
-    return launches
+    return launches, out, paths
 
 
 def phase_full_size(tmp, card):
@@ -683,7 +700,169 @@ def phase_full_size(tmp, card):
     say(f"  8x5Mbp: ANDIX_INDEX=subject PHYLIP == ANDIX_INDEX=joint PHYLIP, "
         f"{len(out_sx)} bytes")
     _check_matrix(out_sx, 8)
-    return sx_launches
+    return sx_launches, out_j, paths
+
+
+def _run_grid(paths, devices, env):
+    """One -m JC run of the pair grid over ``devices`` under ``env``: the
+    CLI when ``devices`` are all of two or more visible cards (it takes
+    them all), else ``pipeline.calculate_matrix(devices=...)`` and the
+    CLI's printing.  Launch counts are set to 0 just before and read just
+    after.  Returns (PHYLIP, launches by card, wall s, peak bytes by
+    card)."""
+    from andix_torch import fasta, kernels, output, pipeline
+    from andix_torch.runtime import Context
+
+    cards = sorted({d.index for d in devices})
+    os.environ.update(env)
+    try:
+        for c in cards:
+            torch.cuda.synchronize(c)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(c)
+        kernels.reset_launches()
+        t0 = time.time()
+        every_card = [torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count())]
+        if len(every_card) >= 2 and devices == every_card:
+            code, out = run_cli(["--backend", "cuda", "--progress=never",
+                                 "-m", "JC"] + paths)
+        else:
+            ctx = Context()
+            seqs = [s for p in paths for s in fasta.read_fasta(p, ctx)]
+            M = pipeline.calculate_matrix(seqs, ctx, devices,
+                                          block_syms=ctx.block_syms)
+            buf = io.StringIO()
+            output.print_distances(M, seqs, len(seqs), True, ctx, out=buf)
+            code, out = ctx.exit_code, buf.getvalue()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        wall = time.time() - t0
+        launches = {c: dict(kernels.launches_by_card.get(c, {}))
+                    for c in cards}
+    finally:
+        for k in env:
+            del os.environ[k]
+    peaks = {c: torch.cuda.max_memory_allocated(c) for c in cards}
+    if code != 0:
+        raise AssertionError(f"multi-card run {env}: exit code {code}")
+    return out, launches, wall, peaks
+
+
+def _two_processes(paths):
+    """``python -m andix_torch.cli --backend cuda -m JC`` as ranks 0 and 1
+    of a gloo group on loopback (torchrun's variables); each rank takes
+    card LOCAL_RANK % device_count.  Returns ([(exit, stdout, stderr)],
+    seconds from the launch until both exited)."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    t0 = time.time()
+    for rank in range(2):
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("ANDIX_")}
+        env.update(PYTHONPATH=root, RANK=str(rank), LOCAL_RANK=str(rank),
+                   WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "andix_torch.cli", "--backend", "cuda",
+             "--progress=never", "-m", "JC"] + paths,
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    res = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=300)
+            res.append((p.returncode, so, se))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res, time.time() - t0
+
+
+def phase_multi_card(paths_5m, joint_5m, paths_1m, joint_1m):
+    """Phase 8: the pair grid over several workers.  With two or more
+    cards the workers are the cards; with one, two workers share cuda:0.
+    The 8 x 5 Mbp joint grid (sharded) and subject-index schedule (two
+    groups) must print phase 7's bytes, every worker's card must launch the
+    schedule's kernels; two processes at 8 x 1 Mbp must print phase 6's
+    bytes from rank 0 and nothing from rank 1."""
+    from andix_torch import parallel, pipeline, subject_pipeline
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        devices = [torch.device("cuda", i) for i in range(count)]
+        layout = (f"{count} cards, one worker each; the CLI runs with every "
+                  "card visible")
+    else:
+        devices = [torch.device("cuda", 0)] * 2
+        layout = ("1 card: two workers share cuda:0 through "
+                  "calculate_matrix(devices=...); peer placement was not "
+                  "exercised")
+    say(f"multi-card: torch.cuda.device_count() = {count}; {layout}")
+
+    shares = parallel.round_robin_blocks(len(paths_5m), len(devices))
+    runs = [
+        ("joint", {"ANDIX_INDEX": "joint"}, pipeline.LAST_BALANCE,
+         ("flag_scan", "chain_walk_flat"),
+         [d for d, b in zip(devices, shares) if b]),
+        ("subject", {"ANDIX_INDEX": "subject", "ANDIX_GROUP_SUBJECTS": "4"},
+         subject_pipeline.LAST_BALANCE, ("chain_walk_flat_sx",),
+         devices[:2]),
+    ]
+    for label, env, balance, kernels_used, workers in runs:
+        # one worker, all workers, all workers, one worker: in turns
+        for turn, group in enumerate((devices[:1], devices, devices,
+                                      devices[:1])):
+            out, launches, wall, peaks = _run_grid(paths_5m, group, env)
+            if out != joint_5m:
+                raise AssertionError(f"8x5Mbp {label} over {group}: PHYLIP "
+                                     f"!= the one-card joint PHYLIP:\n{out}"
+                                     f"\n{joint_5m}")
+            if len(group) == 1:
+                say(f"multi-card 8x5Mbp {label}, run {turn + 1} of 4: one "
+                    f"worker on {group[0]} (this call's baseline), wall "
+                    f"{wall:.3f} s")
+                continue
+            say(f"multi-card 8x5Mbp {label}, run {turn + 1} of 4: "
+                f"{len(workers)} workers ({', '.join(map(str, workers))}), "
+                f"wall {wall:.3f} s")
+            for line in balance:
+                say(f"  {line}")
+            for c in sorted(launches):
+                say(f"  cuda:{c}: launches {launches[c]}, peak device memory "
+                    f"{peaks[c]} B")
+            for d in workers:
+                got = launches.get(d.index, {})
+                if min(got.get(k, 0) for k in kernels_used) <= 0:
+                    raise AssertionError(f"{label}: {d} did not launch "
+                                         f"{kernels_used}: {got}")
+            if label == "subject" and any(v.get("chain_walk_flat", 0)
+                                          for v in launches.values()):
+                raise AssertionError(f"subject run fell back to the joint "
+                                     f"walk: {launches}")
+        say(f"  8x5Mbp {label}: every run's PHYLIP == the one-card joint "
+            f"PHYLIP, {len(joint_5m)} bytes")
+
+    res, wall = _two_processes(paths_1m)
+    say(f"multi-process 8x1Mbp, two ranks: {wall:.3f} s from the launch "
+        f"until both exited (process start and kernel load included)")
+    for rank, (code, out, err) in enumerate(res):
+        say(f"  rank {rank} on cuda:{rank % count}: exit {code}, {len(out)} "
+            f"stdout bytes")
+        if code != 0:
+            raise AssertionError(f"rank {rank} failed:\n{err[-3000:]}")
+    if res[0][1] != joint_1m or res[1][1]:
+        raise AssertionError(f"two processes: rank 0 stdout != phase 6's, or "
+                             f"rank 1 printed:\n{res[0][1]}\n{res[1][1]}")
+    say("  8x1Mbp two processes: rank 0 PHYLIP == the one-process PHYLIP, "
+        "rank 1 printed nothing")
 
 
 def main() -> int:
@@ -692,12 +871,15 @@ def main() -> int:
         return 2
     from andix_torch import kernels  # fails outside a checkout of the repo
 
-    smi = subprocess.run(
+    smi_lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+    smi = smi_lines[0]
     say(smi)
+    for i, line in enumerate(smi_lines[1:], 1):
+        say(f"card {i}: {line}")
     dev = torch.device("cuda", 0)
     t0 = time.time()
     kernels.cuda_lib()
@@ -710,10 +892,11 @@ def main() -> int:
     phase_index_build(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli_parity(tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(tmp, smi)
-    with tempfile.TemporaryDirectory() as tmp:
-        sx_launches = phase_full_size(tmp, smi)
+    with tempfile.TemporaryDirectory() as tmp1, \
+            tempfile.TemporaryDirectory() as tmp5:
+        launches, out_1m, paths_1m = phase_main_path(tmp1, smi)
+        sx_launches, out_5m, paths_5m = phase_full_size(tmp5, smi)
+        phase_multi_card(paths_5m, out_5m, paths_1m, out_1m)
 
     table = {"kernels": [
         {"name": "flag_scan", "route": "cuda",

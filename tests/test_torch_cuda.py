@@ -296,3 +296,83 @@ def test_wrappers_refuse_bad_inputs(cuda):
         with pytest.raises(ValueError):
             rd.chain_walk_flat(ctx.isa, ctx.rm, args["text"], args["mlun"],
                                args["ps"], lanes, 8, 8, 64, 4, 4)
+
+
+def _grid(M, n):
+    return np.array([[M[i][j].counts for j in range(n)] for i in range(n)])
+
+
+@pytest.mark.parametrize("schedule", ["joint", "subject"])
+def test_two_workers_on_one_card_equal_one(cuda, monkeypatch, schedule):
+    """Two workers sharing the card (the sharded joint grid, or two
+    subject-index workers) give the one-worker grid and the CPU's, and the
+    card launched the schedule's kernels."""
+    from andix_torch import pipeline
+    from andix_torch.runtime import Context
+
+    monkeypatch.setenv("ANDIX_INDEX", schedule)
+    monkeypatch.setenv("ANDIX_GROUP_SUBJECTS", "2")
+    seqs = _family()
+
+    def grid(devices):
+        return _grid(pipeline.calculate_matrix(seqs, Context(), devices), 3)
+
+    one = grid([cuda])
+    kernels.reset_launches()
+    two = grid([cuda, cuda])
+    card = kernels.launches_by_card[cuda.index]
+    lines = list(pipeline.LAST_BALANCE if schedule == "joint"
+                 else subject_pipeline.LAST_BALANCE)
+    assert (two == one).all()
+    assert (one == grid([torch.device("cpu")])).all()
+    names = (["flag_scan", "chain_walk_flat"] if schedule == "joint"
+             else ["chain_walk_flat_sx"])
+    assert all(card[name] > 0 for name in names), card
+    assert any(ln.startswith(f"worker 1 on {cuda}") for ln in lines), lines
+
+
+def test_wrappers_launch_on_the_workers_card(cuda):
+    """Every card at once, each from a worker thread of its own that never
+    sets a current device: each wrapper's output lands on that card, equals
+    its plain version, and counts on that card."""
+    from andix_torch import parallel
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more CUDA devices")
+
+    def check(d):
+        dev = torch.device("cuda", d)
+        scan_in = _scan_inputs(70001, d, dev)
+        ctx, mlun, ps, lanes = _family_lanes(dev, 2)
+        index, sx_lanes = _sx_group(dev, 2, 8)
+        before = dict(kernels.launches_by_card.get(d, {}))
+        got_scan = scans.flag_scan(*scan_in)
+        got_walk = rd.chain_walk_flat(ctx.isa, ctx.rm, ctx.text, mlun, ps,
+                                      lanes, 1 << 28, 1 << 28, 1 << 15, 4, 4)
+        got_sx = walk_sx.chain_walk_flat_sx(*index, sx_lanes, 1 << 28,
+                                            1 << 28, 8, 1 << 15)
+        after = dict(kernels.launches_by_card[d])
+        assert all(after[name] == before.get(name, 0) + 1
+                   for name in kernels.launches), (before, after)
+        ref = scans.flag_scan(*(x.cpu() for x in scan_in))
+        for a, b in zip(got_scan, ref):
+            assert a.device == dev and torch.equal(a.cpu(), b)
+        walks = [
+            (got_walk, rd.chain_walk_flat_plain(
+                ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes, 1 << 28, 1 << 28,
+                1 << 15, 4, 4), lanes["row"].shape[0]),
+            (got_sx, walk_sx.chain_walk_flat_sx_plain(
+                *index, sx_lanes, 1 << 28, 1 << 28, 8, 1 << 15),
+             sx_lanes["row"].shape[0]),
+        ]
+        for got, ref, lb in walks:
+            assert all(x.device == dev for x in got[:4] + got[7:])
+            assert [int(got[i]) for i in (4, 5, 6)] == [int(ref[i])
+                                                       for i in (4, 5, 6)]
+            for a, b in zip(got[7:], ref[7:]):
+                assert torch.equal(a, b)
+            for a, b in zip(_per_lane(got, lb), _per_lane(ref, lb)):
+                assert a.shape == b.shape and (a == b).all()
+
+    parallel.run_workers([lambda d=d: check(d) for d in range(count)])

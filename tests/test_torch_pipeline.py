@@ -19,7 +19,6 @@ from andix.runtime import Context as JContext
 from andix.sequence import Seq as JSeq
 from andix_torch import pipeline
 from andix_torch.chain import segmented
-from andix_torch.esa.backend import TorchBackend
 from andix_torch.runtime import Context
 from andix_torch.sequence import Seq
 
@@ -63,7 +62,7 @@ def joint_schedule(monkeypatch):
             block_syms=block_syms)
         got = pipeline.calculate_matrix(
             [Seq(d, nm) for nm, d in fam], Context(),
-            backend=TorchBackend(torch.device("cpu")), block_syms=block_syms)
+            [torch.device("cpu")], block_syms=block_syms)
         n = len(fam)
         assert (_grid(got, n) == _grid(ref, n)).all()
         return got
@@ -131,7 +130,7 @@ def test_checkpoint_rows_shared_across_packages(tmp_path, monkeypatch):
     fam = _family(4, 1200, [0.03, 0.08, 0.2], seed=53)
     jseqs = [JSeq(d, nm) for nm, d in fam]
     seqs = [Seq(d, nm) for nm, d in fam]
-    backend = TorchBackend(torch.device("cpu"))
+    cpu = [torch.device("cpu")]
     assert (pipeline.checkpoint_fingerprint(seqs, Context())
             == jpipeline.checkpoint_fingerprint(jseqs, JContext()))
 
@@ -143,12 +142,12 @@ def test_checkpoint_rows_shared_across_packages(tmp_path, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(pipeline, "make_blocks", no_work)
         got = pipeline.calculate_matrix(seqs, Context(checkpoint_dir=d1),
-                                        backend=backend)
+                                        cpu)
     assert (_grid(got, 4) == _grid(ref, 4)).all()
 
     d2 = str(tmp_path / "from_torch")
     first = pipeline.calculate_matrix(seqs, Context(checkpoint_dir=d2),
-                                      backend=backend)
+                                      cpu)
     os.remove(os.path.join(d2, "row_2.npz"))  # one row left to compute
     resumed = jpipeline.calculate_matrix(jseqs, JContext(checkpoint_dir=d2))
     assert (_grid(resumed, 4) == _grid(first, 4)).all()
@@ -165,6 +164,8 @@ def test_port_imports_neither_jax_nor_andix():
         "import sys\n"
         "import andix_torch, andix_torch.cli, andix_torch.pipeline\n"
         "import andix_torch.kernels, andix_torch.native\n"
+        "import andix_torch.parallel, andix_torch._distributed\n"
+        "import andix_torch.device\n"
         "import andix_torch.chain.replay_device, andix_torch.esa.backend\n"
         "import andix_torch.subject_pipeline, andix_torch.chain.walk_sx\n"
         "import andix_torch.esa.subject_index, andix_torch.esa.sa_numpy\n"
@@ -181,13 +182,21 @@ def test_port_imports_neither_jax_nor_andix():
 
 
 def test_device_choice(monkeypatch):
-    from andix_torch import device
+    from andix_torch import _distributed, device
 
-    assert device.resolve_device("cpu") == torch.device("cpu")
+    assert device.resolve_devices("cpu") == [torch.device("cpu")]
     for name in ("jax", "numpy", "tpu"):
         with pytest.raises(device.DeviceError):
-            device.resolve_device(name)
+            device.resolve_devices(name)
+    # every visible card; one card a process, LOCAL_RANK's, under a group
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert device.resolve_devices("cuda") == [torch.device("cuda", i)
+                                              for i in range(3)]
+    monkeypatch.setattr(_distributed, "world_size", lambda: 2)
+    monkeypatch.setenv("LOCAL_RANK", "4")
+    assert device.resolve_devices("auto") == [torch.device("cuda", 1)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("auto", "cuda"):
         with pytest.raises(device.DeviceError, match="no"):
-            device.resolve_device(name)
+            device.resolve_devices(name)

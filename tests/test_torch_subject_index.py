@@ -232,8 +232,7 @@ def _grids(name, jax=False, env=None):
             ctx = Context(low_memory=low,
                           model=Model.LOGDET if logdet else Model.JC)
             M = pipeline.calculate_matrix(
-                [TSeq(d, nm) for nm, d in fam], ctx,
-                backend=backend.TorchBackend(torch.device("cpu")))
+                [TSeq(d, nm) for nm, d in fam], ctx, [torch.device("cpu")])
     n = len(fam)
     return (np.array([[M[i][j].counts for j in range(n)] for i in range(n)]),
             np.array([[M[i][j].seq_len for j in range(n)] for i in range(n)]))

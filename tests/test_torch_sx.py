@@ -29,7 +29,6 @@ from andix.runtime import Context as JContext
 from andix.sequence import Seq, subject_init
 from andix_torch import pipeline
 from andix_torch.chain import segmented, walk_sx
-from andix_torch.esa.backend import TorchBackend
 from andix_torch.runtime import Context
 from andix_torch.sequence import Seq as TSeq
 
@@ -550,7 +549,7 @@ def _subject_grids(fam, env, chunk=None, jax=False):
         else:
             M = pipeline.calculate_matrix(
                 [TSeq(d, nm) for nm, d in fam], Context(),
-                backend=TorchBackend(torch.device("cpu")))
+                [torch.device("cpu")])
     n = len(fam)
     return (np.array([[M[i][j].counts for j in range(n)] for i in range(n)]),
             np.array([[M[i][j].seq_len for j in range(n)] for i in range(n)]))
