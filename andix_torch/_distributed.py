@@ -17,17 +17,22 @@ that imports ``andix`` joins a JAX cluster from them.  Without
 ``WORLD_SIZE`` > 1 nothing happens and the run is single-process.
 
 A rank whose run raises exits, and the other ranks' next collective then
-fails at once on the closed connection, so every rank fails.  gloo's
-default timeout (30 minutes) stays: it bounds every collective, and the
-gather after the grid waits for the slowest rank's share, which a shorter
-timeout would cut in a long healthy run.
+fails at once on the closed connection, so every rank fails.  The
+collective timeout, COLLECTIVE_TIMEOUT_S, bounds how long a rank waits in
+a collective for the others: the gather after the grid waits for the
+slowest rank's share, hours into a large run, so it is a day (as
+``andix``'s scripts/st131_mesh.py sets it), not gloo's default 30 minutes;
+it only ever cuts a rank that hangs.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch.distributed as dist
+
+COLLECTIVE_TIMEOUT_S = 86_400
 
 
 def maybe_init_distributed() -> bool:
@@ -40,8 +45,10 @@ def maybe_init_distributed() -> bool:
         return False
     addr = os.environ.get("MASTER_ADDR", "localhost")
     port = os.environ["MASTER_PORT"]
-    dist.init_process_group("gloo", init_method=f"tcp://{addr}:{port}",
-                            rank=int(os.environ["RANK"]), world_size=world)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{addr}:{port}",
+        rank=int(os.environ["RANK"]), world_size=world,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     return True
 
 

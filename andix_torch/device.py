@@ -12,11 +12,24 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from . import _distributed
 
 BACKENDS = ("auto", "cuda", "cpu")
+
+
+def memory_budget(device: torch.device, share: int = 1) -> int:
+    """Bytes a block may use: 90% of the card's free memory, or half the
+    host's physical memory for the CPU backend, split evenly between the
+    ``share`` workers that run on the device."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return int(free * 0.9) // share
+    return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+               * 0.5) // share
 
 
 class DeviceError(RuntimeError):

@@ -4,9 +4,12 @@ the segmented chain walk, host counting (counterpart of
 
 Per block (``prepare_block``): the padded int32 joint text goes to the
 device as it is, and its byte copy (``BlockContext.text``) stays there
-for the walk's lucky checks; suffix array by prefix doubling, adjacent
-LCP from the rank levels, then segment ids, inverse SA, the query blob's
-SA slots and the range-min structure.  Per subject group
+for the walk's lucky checks; suffix array by prefix doubling and the
+adjacent LCP (``doubling.sa_lcp_device``: the sampled-PLCP kernel over a
+capped level buffer, or the level walk), with ``andix``'s retreat to the
+host Φ LCP (``native.lcp_from_sa``) when the levels overflow or do not
+fit; then segment ids, inverse SA, the query blob's SA slots and the
+range-min structure.  Per subject group
 (``subject_group_counts``): ``[Sg, QB]`` match-statistics tables (two
 flag scans per subject), the
 segmented chain walk (``chain.segmented`` driving ``chain_walk_flat``),
@@ -27,8 +30,10 @@ from ..chain import segmented
 from ..chain.replay_device import (
     LANE_FIELDS, chain_walk_flat, fetch_walk, group_subject_tables,
 )
+from .. import native
+from ..device import memory_budget
 from ..model import CountMatrix
-from . import doubling, lcp as lcp_mod, matchstats, rmq
+from . import doubling, matchstats, plcp, rmq, sa_numpy
 from .joint import SEPARATOR_BASE, BlockLayout
 
 _MIN_BUCKET = int(os.environ.get("ANDIX_MIN_BUCKET", 1 << 16))
@@ -65,6 +70,51 @@ def pad_symbols(sym: np.ndarray, padded_n: int) -> np.ndarray:
     )
     pad = pad_base + np.arange(padded_n - n, dtype=np.int32)
     return np.concatenate([sym, pad])
+
+
+# andix's largest padded block whose LCP is built on the device
+# (backend_jax.py:306); larger blocks build the SA without levels and take
+# the host LCP.  Re-derived on the card with the ``auto`` rule (ROADMAP).
+DEVICE_LCP_MAX = 192 * 1024 * 1024
+# device bytes per padded symbol that the SA build needs besides its level
+# rows: the text, ranks, SA and a full round's int64 sort operands.  On an
+# H100 80GB HBM3 (700 W; chip_smoke.py phase 4, PERF.md) a random 5 Mbp
+# subject's SA + LCP stage peaked at 60.22 B over its text (4 B), 4 B of
+# it its one level row; rounded up.
+LEVEL_RESERVE_BYTES_PER_SYM = 64
+
+
+def level_budget(padded_n: int, budget: int) -> int:
+    """Int32 rank levels of ``padded_n`` symbols that fit ``budget`` bytes
+    beside the build's other arrays (``andix``'s ``level_budget``, from
+    this worker's memory budget instead of a TPU's 12 GB)."""
+    reserve = LEVEL_RESERVE_BYTES_PER_SYM * padded_n
+    return max(0, (budget - reserve) // (4 * padded_n))
+
+
+_OUTSIDE_ALPHABET = np.ones(256, dtype=bool)
+_OUTSIDE_ALPHABET[sorted(plcp.ALPHABET_U8)] = False
+
+
+def alphabet_ok(sym: torch.Tensor, n: int) -> bool:
+    """Every byte of the first ``n`` symbols (separators count as 0) in
+    the block alphabet (``plcp.ALPHABET_U8``): the condition of the wide
+    initial ranks and the sampled-PLCP LCP.  One histogram on the
+    symbols' device."""
+    real = sym[:n]
+    counts = torch.bincount(torch.where(real < SEPARATOR_BASE, real, 0),
+                            minlength=256)
+    return not counts.cpu().numpy()[_OUTSIDE_ALPHABET].any()
+
+
+def host_lcp(padded: np.ndarray, sa: torch.Tensor, threads: int):
+    """The LCP by the host's parallel Φ algorithm, on ``sa``'s device."""
+    sa_h = sa.cpu().numpy()
+    if native.available():
+        lcp = native.lcp_from_sa(padded, sa_h, threads)
+    else:  # pragma: no cover - toolchain-less fallback
+        lcp = sa_numpy.lcp_array(padded, sa_h).astype(np.int32)
+    return torch.from_numpy(lcp).to(sa.device)
 
 
 def prof(label: str, t0: float, device: torch.device) -> float:
@@ -187,27 +237,66 @@ def _query_slots(isa: torch.Tensor, q_start: np.ndarray, q_off: np.ndarray,
 
 class TorchBackend:
     """The block backend on one device; ``share`` is the number of workers
-    that run on the device at once, which split its free memory."""
+    that run on the device at once, which split its free memory, and
+    ``budget`` the bytes a block may use (``pipeline.worker_memory``;
+    by default this worker's share of the device's memory when the
+    backend is built)."""
 
     def __init__(self, device: torch.device, threads: int = 0,
-                 share: int = 1):
+                 share: int = 1, budget: int | None = None):
         self.device = torch.device(device)
         self.threads = threads
         self.share = share
+        self.budget = (budget if budget is not None
+                       else memory_budget(self.device, share))
 
     def prepare_block(self, layout: BlockLayout) -> BlockContext:
+        """The block's SA, LCP and tables on the device, by ``andix``'s
+        decision chain (backend_jax.py:349-455): the device LCP for blocks
+        up to DEVICE_LCP_MAX whose level budget (from ``budget``) is at
+        least 6, from the wide packed ranks and the sampled-PLCP kernel
+        where the block alphabet holds and the block has at most 700
+        segments, ``levels`` mode otherwise; the level buffer keeps as
+        many rows as the text needs and the budget holds (``andix``'s
+        TPU cap of 14 rows is not kept); the host Φ LCP after an overflow
+        or without the device LCP."""
         dev = self.device
         t0 = time.time()
         padded_n = bucket(layout.n)
-        sym = torch.from_numpy(pad_symbols(layout.sym, padded_n)).to(dev)
-        text = text_bytes(sym, layout.n, len(layout.genome_ids))
+        nseg = len(layout.genome_ids)
+        padded = pad_symbols(layout.sym, padded_n)
+        sym = torch.from_numpy(padded).to(dev)
+        text = text_bytes(sym, layout.n, nseg)
         t0 = prof(f"H2D text ({padded_n} padded symbols)", t0, dev)
-        sa, levels = doubling.suffix_array(sym)
+
+        budget = level_budget(padded_n, self.budget)
+        use_device_lcp = padded_n <= DEVICE_LCP_MAX and budget >= 6
+        # the packed keys need separators within the 10-bit clamp
+        packed = nseg <= 700
+        wide = packed and alphabet_ok(sym, layout.n)
+        mode = "hybrid" if wide else "levels"
+
+        def sa_done(lev_count, L):
+            nonlocal t0
+            t0 = prof(f"SA doubling ({lev_count} levels, buffer {L})", t0,
+                      dev)
+
+        sa, lcp, ovf, may_ovf = doubling.sa_lcp_device(
+            sym, packed=packed, max_levels=budget, want_lcp=use_device_lcp,
+            lcp_mode=mode, base_width=doubling.wide_base_width(nseg, wide),
+            on_sa=sa_done)
         del sym
-        t0 = prof(f"SA doubling ({len(levels)} levels)", t0, dev)
-        lcp = lcp_mod.lcp_from_levels(sa, levels)
-        del levels
-        t0 = prof("LCP level walk", t0, dev)
+        if not use_device_lcp:
+            lcp = None
+        elif may_ovf and bool(ovf):
+            lcp = None
+            t0 = prof(f"LCP {mode}: level overflow", t0, dev)
+        else:
+            t0 = prof(f"LCP {mode}", t0, dev)
+        if lcp is None:
+            lcp = host_lcp(padded, sa, self.threads)
+            t0 = prof("host LCP round trip", t0, dev)
+        del padded
 
         genomes, q_off, blob, q_start, q_len, q_base = _query_lanes(layout)
         segid = _segid(sa, layout.seg_start[1:])

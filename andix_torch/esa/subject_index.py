@@ -23,10 +23,11 @@ int64 values.
   ``device_order_codes``, ``pack_words`` (int32 symbols),
   ``pack_words_u8`` (query bytes), ``build_cache`` (one ``scatter_add_``
   histogram over the mixed-radix k-mer ranks, then a cumsum) and
-  ``build_subject_index``.  The suffix array comes from the port's prefix
-  doubling and the LCP from its rank-level walk, which is exact at any
-  depth — so the JAX package's sampled-PLCP hybrid, its LCP overflow flag
-  and its host-Φ retreat have no counterpart here.
+  ``build_subject_index``, whose suffix array and LCP come from
+  ``andix``'s build (``doubling.sa_lcp_device``: wide packed ranks, the
+  sampled-PLCP LCP over the level rows the caller's budget holds) with
+  its overflow flag; the caller takes the host Φ LCP of an overflowed
+  subject.
 """
 
 from __future__ import annotations
@@ -298,20 +299,26 @@ def build_cache(codes: torch.Tensor, n_real: int, k: int) -> torch.Tensor:
     return cache
 
 
-def build_subject_index(sym: torch.Tensor, n_real: int, cache_k: int):
-    """(sa int32[Lp], lcp int32[Lp], words int64[Lp / 16], cache
-    int32[4^k + 1]) of one padded subject text ``sym`` (int32[Lp], real
-    symbols first, then strictly increasing padding >= ``PAD_BASE``)."""
+def build_subject_index(sym: torch.Tensor, n_real: int, cache_k: int,
+                        wide: bool = True, max_levels: int | None = None):
+    """(sa int32[Lp], lcp int32[Lp], overflow 0-d bool, words int64[Lp /
+    16], cache int32[4^k + 1]) of one padded subject text ``sym``
+    (int32[Lp], real symbols first, then strictly increasing padding >=
+    ``PAD_BASE``), as ``andix``'s ``fused_build``: packed initial ranks,
+    12 symbols wide and the hybrid LCP when ``wide`` (the block alphabet
+    holds), else 4 wide and the level walk; at most ``max_levels`` level
+    rows (``andix`` keeps at most 14 in hybrid mode).  The LCP is not to
+    be used when the overflow flag is set."""
     from . import doubling
-    from .lcp import lcp_from_levels
 
-    sa, levels = doubling.suffix_array(sym)
-    lcp = lcp_from_levels(sa, levels)
-    del levels
+    sa, lcp, ovf, _ = doubling.sa_lcp_device(
+        sym, packed=True, max_levels=max_levels,
+        lcp_mode="hybrid" if wide else "levels",
+        base_width=doubling.wide_base_width(1, wide))
     codes = device_order_codes(sym)
     words = _pack_codes(codes)
     cache = build_cache(codes, n_real, cache_k)
-    return sa, lcp, words, cache
+    return sa, lcp, ovf, words, cache
 
 
 def pick_cache_k(max_len: int, n_subjects: int, budget_bytes: int) -> int:

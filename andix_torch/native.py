@@ -3,10 +3,11 @@
 The package's own copy of the host counting source, ``csrc/host_native.cpp``
 (held byte for byte equal to ``andix``'s by a test), is compiled with g++
 into this package's git-ignored ``_build/`` directory on first use.
-Only the host counting entry the joint schedule needs is bound here:
-``count_from_anchors_batch`` (the 16-cell counts from anchor events).
-``available()`` reports whether the build worked; ``chain.events`` then
-falls back to its exact Python counting.
+Two entries are bound here: ``count_from_anchors_batch`` (the 16-cell
+counts from anchor events) and ``lcp_from_sa`` (the parallel Φ LCP the
+ESA builds retreat to when the rank levels overflow).  ``available()``
+reports whether the build worked; ``chain.events`` then falls back to its
+exact Python counting, and the LCP retreat to ``esa.sa_numpy``.
 """
 
 from __future__ import annotations
@@ -70,12 +71,29 @@ def _load():
         i64p, u8p, i64p, ctypes.c_int, ctypes.c_int, i64p,
     ]
     lib.count_from_anchors_batch.restype = None
+    lib.lcp_from_sa.argtypes = [i32p, i32p, ctypes.c_int64, i32p, i32p, i32p,
+                                ctypes.c_int]
+    lib.lcp_from_sa.restype = None
     _lib = lib
     return _lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def lcp_from_sa(sym: np.ndarray, sa: np.ndarray, threads: int = 0) -> np.ndarray:
+    """Adjacent LCP array via the native parallel Φ algorithm."""
+    lib = _load()
+    assert lib is not None
+    n = len(sa)
+    sym = np.ascontiguousarray(sym, dtype=np.int32)
+    sa = np.ascontiguousarray(sa, dtype=np.int32)
+    lcp = np.empty(n, dtype=np.int32)
+    phi = np.empty(n, dtype=np.int32)
+    plcp = np.empty(n, dtype=np.int32)
+    lib.lcp_from_sa(sym, sa, n, lcp, phi, plcp, threads)
+    return lcp
 
 
 def count_from_anchors_batch(

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from . import _distributed, parallel
-from .device import ranks_on
+from .device import memory_budget, ranks_on
 from .esa import joint
 from .model import CountMatrix
 from .output import ProgressMeter
@@ -79,20 +79,14 @@ def make_blocks(
     return blocks
 
 
-# Peak device bytes per PADDED block symbol of the joint schedule:
-# 117.63 measured on an H100 at 2^24 padded symbols (PERF.md), rounded up.
+# Peak device bytes per PADDED block symbol of the joint schedule, rounded
+# up from chip_smoke.py's CLI runs on an H100 80GB HBM3 (700 W; PERF.md):
+# 118.63 at 8 x 1 Mbp (2^24 padded symbols), 118.44 at 8 x 5 Mbp, and
+# 118.44 for the repeat family (8 x 5 Mbp with g1 = g0), whose SA build
+# keeps 20 level rows (80 B): the peak comes after the build, in the block
+# tables.  Level rows beyond what a block's budget holds are not kept
+# (``esa.backend.level_budget``); the LCP then comes from the host.
 BYTES_PER_PADDED_SYM = 128
-
-
-def memory_budget(device: torch.device, share: int = 1) -> int:
-    """Bytes a block may use: 90% of the card's free memory, or half the
-    host's physical memory for the CPU backend, split evenly between the
-    ``share`` workers that run on the device."""
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return int(free * 0.9) // share
-    return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
-               * 0.5) // share
 
 
 def worker_memory(devices: list[torch.device]) -> tuple[list[int], int]:
@@ -384,11 +378,12 @@ def calculate_matrix(
         and os.environ.get("ANDIX_SHARDED", "1") != "0"
     ):
         _process_sharded(todo, seqs, subjects, ctx, M, progress, ckpt,
-                         devices, shares, worker_counts, block_syms,
+                         devices, shares, budget, worker_counts, block_syms,
                          max_query_syms)
         return M
 
-    backend = TorchBackend(devices[0], ctx.threads, share=shares[0])
+    backend = TorchBackend(devices[0], ctx.threads, share=shares[0],
+                           budget=budget)
     blocks = [
         [todo[k] for k in blk]
         for blk in make_blocks(
@@ -409,8 +404,8 @@ LAST_BALANCE: list[str] = []
 
 
 def _process_sharded(todo, seqs, subjects, ctx: Context, M, progress, ckpt,
-                     devices, shares, worker_counts, block_syms: int,
-                     max_query_syms: int) -> None:
+                     devices, shares, budget: int, worker_counts,
+                     block_syms: int, max_query_syms: int) -> None:
     """The sharded pair grid (``andix``'s ``_process_sharded``): the rows
     in ``todo`` split into contiguous shares, one per worker of the global
     worker list (ranks in order, each rank's ``devices`` in order), and
@@ -420,7 +415,8 @@ def _process_sharded(todo, seqs, subjects, ctx: Context, M, progress, ckpt,
     does not fit one block of the plan; a worker without rows does
     nothing.  Under a process group rank 0 gathers every rank's rows and
     alone writes their checkpoint rows.  ``shares`` is each worker's split
-    of its device's memory (``worker_memory``)."""
+    of its device's memory and ``budget`` the bytes every worker plans
+    with (``worker_memory``)."""
     from .esa.backend import TorchBackend
 
     n = len(seqs)
@@ -434,7 +430,8 @@ def _process_sharded(todo, seqs, subjects, ctx: Context, M, progress, ckpt,
     meter = parallel.LockedProgress(progress) if progress is not None else None
 
     def work(device, share, rows):
-        backend = TorchBackend(device, ctx.threads, share=share)
+        backend = TorchBackend(device, ctx.threads, share=share,
+                               budget=budget)
         for blk in make_blocks([subjects[i] for i in rows], block_syms,
                                False, query_base=max_query_syms):
             _process_block([rows[k] for k in blk], seqs, subjects, ctx,

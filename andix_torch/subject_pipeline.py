@@ -24,7 +24,11 @@ A group the schedule cannot finish goes back to the caller, which runs
 it on the joint schedule: after an event-buffer overflow the group is
 walked again with a 4x larger buffer, at most twice; when the segmented
 resolve does not converge it goes back at once (a larger buffer would not
-change the walk).
+change the walk); and when the segmented walk is about to repeat a
+dispatch with the same inputs, which happens when a probe needs more
+iterations than the chunk cap's ceiling (clonal genomes longer than a
+few tens of kbp), it goes back at once too, where ``andix`` repeats the
+dispatch forever.
 
 With several devices in a single-process run (``andix``'s per-device
 drivers, subject_pipeline.py:250-303) the groups are dealt round-robin to
@@ -50,7 +54,7 @@ from .chain import events as chain_events
 from .chain import segmented
 from .chain.replay_device import fetch_walk
 from .chain.walk_sx import SX_LANE_FIELDS, chain_walk_flat_sx
-from .esa import joint, subject_index
+from .esa import backend, joint, subject_index
 from .esa.backend import bucket, pad_symbols, prof
 from .model import CountMatrix
 from .runtime import Context
@@ -61,13 +65,15 @@ LAST_BALANCE: list[str] = []
 # resident device bytes per padded index symbol: SA 4 + LCP 4 + words 0.5
 IDX_BYTES_PER_SYM = 8.5
 # peak device bytes per padded index symbol while one subject's index
-# builds (the padded text, prefix-doubling sorts and rank levels, then the
-# LCP level walk, codes and words), over what the group already holds;
-# the k-mer histogram and its prefix sums add four cache sizes.  Measured
-# on an H100 80GB HBM3 (700 W): 4 + 82 B for the text and the SA + LCP
-# stage of a random 5 Mbp genome, which needs 5 rank levels (PERF.md).
-# Each further level adds 4 B, and real genomes' repeats (rRNA operons,
-# insertion sequences, a few kbp) need up to about 13 levels: 118 B.
+# builds (the padded text, the prefix-doubling sorts and the level rows,
+# then the sampled-PLCP LCP, codes and words), over what the group already
+# holds; the k-mer histogram and its prefix sums add four cache sizes.
+# The level rows are allocated as the rounds produce them, up to what the
+# budget left over holds (``_build_group_index``): a subject whose repeats
+# need more takes the host LCP instead.  Measured by chip_smoke.py on an
+# H100 80GB HBM3 (700 W; PERF.md): 4 B of text + 60.22 B for the SA + LCP
+# stage of a random 5 Mbp genome (one level row).  Each row a genome's
+# repeats need adds 4 B; 128 leaves room for about 16 rows.
 BUILD_BYTES_PER_PADDED_SYM = 128
 
 
@@ -114,11 +120,18 @@ def index_length(subject) -> int:
     return bucket(subject.len + 1)
 
 
-def _build_group_index(group, subjects, cache_k: int, device):
+def _build_group_index(group, subjects, cache_k: int, device, budget: int,
+                       threads: int):
     """Stacked device index of one subject group, rows padded to a
     multiple of 8: (salcp int32[S, 2, Lp], sw int64[S, Lp / 16], cache2
-    int32[S, 4^k + 1], nreal int32[S]).  Padding rows have nreal 1 and
-    no lanes."""
+    int32[S, 4^k + 1], nreal int32[S], the number of host LCPs taken).
+    Padding rows have nreal 1 and no lanes.  Each subject builds as in
+    ``andix`` (subject_pipeline.py:123-170), with the hybrid build, but
+    with as many level rows as the subject needs and ``budget`` (bytes,
+    less what the group's stacked index holds) allows, where ``andix``
+    keeps at most 14 for a TPU's memory; the overflow flags are read once
+    for the group, and an overflowed subject's LCP is then taken on the
+    host (``backend.host_lcp``)."""
     rows = -(-len(group) // 8) * 8
     lp = max(index_length(subjects[i]) for i in group)
     salcp = torch.zeros((rows, 2, lp), dtype=torch.int32, device=device)
@@ -126,18 +139,31 @@ def _build_group_index(group, subjects, cache_k: int, device):
     cache2 = torch.zeros((rows, (1 << (2 * cache_k)) + 1),
                          dtype=torch.int32, device=device)
     nreal = np.ones(rows, dtype=np.int32)
+    held = sum(t.numel() * t.element_size() for t in (salcp, sw, cache2))
+    # andix's fused build keeps at least one row
+    max_levels = max(1, backend.level_budget(lp, budget - held))
+    ovf_flags = []
     for k, i in enumerate(group):
         layout = joint.build_block({i: subjects[i].rs}, {})
         nreal[k] = layout.n
         sym = torch.from_numpy(pad_symbols(layout.sym, lp)).to(device)
-        sa, lcp, words, cache = subject_index.build_subject_index(
-            sym, layout.n, cache_k)
+        sa, lcp, ovf, words, cache = subject_index.build_subject_index(
+            sym, layout.n, cache_k, backend.alphabet_ok(sym, layout.n),
+            max_levels)
         salcp[k, 0] = sa
         salcp[k, 1] = lcp
         sw[k] = words
         cache2[k] = cache
+        ovf_flags.append(ovf)
         del sym, sa, lcp, words, cache
-    return salcp, sw, cache2, torch.from_numpy(nreal).to(device)
+    overflowed = torch.stack(ovf_flags).cpu().numpy()
+    for k in np.nonzero(overflowed)[0]:
+        # pathologically repetitive subject: SA exact, LCP invalid
+        layout = joint.build_block({group[k]: subjects[group[k]].rs}, {})
+        salcp[k, 1] = backend.host_lcp(pad_symbols(layout.sym, lp),
+                                       salcp[k, 0], threads)
+    return (salcp, sw, cache2, torch.from_numpy(nreal).to(device),
+            int(overflowed.sum()))
 
 
 LANE_TARGET = int(os.environ.get("ANDIX_LANE_TARGET", "8192"))
@@ -238,7 +264,7 @@ def process_subject_index(todo: list[int], seqs, subjects, ctx: Context, M,
             events = _process_group(group, qw, subjects, ctx, M, meter, ckpt,
                                     cache_k, ecap, n, gp, q_len_row,
                                     qw_base_pad, q_off, q_off_pad, raw_blob,
-                                    device)
+                                    device, budget)
             status = ("to the joint schedule" if events is None
                       else f"{events} events")
             with lock:
@@ -282,17 +308,24 @@ def _pack_query_words(raw_blob, q_off, n, device) -> torch.Tensor:
     return subject_index.pack_words_u8(torch.from_numpy(blob2).to(device))
 
 
+class _Stalled(Exception):
+    """The segmented walk was about to repeat a dispatch that advanced no
+    lane."""
+
+
 def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
                    ecap, n, gp, q_len_row, qw_base_pad, q_off, q_off_pad,
-                   raw_blob, device) -> int | None:
+                   raw_blob, device, budget) -> int | None:
     """Build, walk and count one subject group and publish its rows;
     returns its event count, or None when the group goes back to the joint
     schedule."""
     t0 = time.time()
-    salcp, sw, cache2, nreal = _build_group_index(group, subjects, cache_k,
-                                                  device)
+    salcp, sw, cache2, nreal, n_host = _build_group_index(
+        group, subjects, cache_k, device,
+        budget - qw.numel() * qw.element_size(), ctx.threads)
     sg = salcp.shape[0]
-    t0 = prof(f"sx: index build ({len(group)} subj)", t0, device)
+    t0 = prof(f"sx: index build ({len(group)} subj, {n_host} host LCP "
+              f"round trips after a level overflow)", t0, device)
 
     rs_lens = np.ones(sg, dtype=np.int32)
     thresholds = np.full(sg, 2**29, dtype=np.int32)
@@ -307,9 +340,17 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
     )
 
     overflowed = False
+    idle_cap = None  # the iteration cap of a dispatch that advanced no lane
 
     def walk(arr, chunk_iters, maxev):
-        nonlocal overflowed
+        nonlocal overflowed, idle_cap
+        # ``segmented`` re-issues the lanes a dispatch leaves unfinished;
+        # after a dispatch that advanced none of them, one at the same cap
+        # returns the same, and so on forever: a probe needs more
+        # iterations than the chunk cap's ceiling (a long exact match, as
+        # between clonal genomes)
+        if chunk_iters == idle_cap:
+            raise _Stalled
         # the driver's query start ("qs") is the lane's base in qw symbols
         lanes = {name: torch.from_numpy(arr["qs" if name == "qwb" else name])
                  .to(device) for name in SX_LANE_FIELDS}
@@ -318,6 +359,12 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
             cache_k, ecap_now,
         ))
         overflowed |= res[4]
+        ev, state, fin = res[:3]
+        live = arr["pos0"] < arr["seg_end"]
+        moved = (ev.shape[1] > 0 or fin[live].any() or any(
+            (state[j][live] != arr[f][live]).any()
+            for j, f in enumerate(("pos0", "lq0", "ls0", "ll0"))))
+        idle_cap = None if moved else chunk_iters
         return res
 
     def prof_msg(msg):
@@ -327,11 +374,17 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
     ecap_now = ecap
     for escalation in range(3):
         overflowed = False
-        res = segmented.segmented_group_anchors(
-            walk, sg, gp, 0, np.zeros(sg, np.int32), rs_lens, thresholds,
-            qw_base_pad, qw_base_pad, q_len2d, seg_k, ecap_now,
-            prof_msg if os.environ.get("ANDIX_PROF_FILE") else None,
-        )
+        idle_cap = None
+        try:
+            res = segmented.segmented_group_anchors(
+                walk, sg, gp, 0, np.zeros(sg, np.int32), rs_lens,
+                thresholds, qw_base_pad, qw_base_pad, q_len2d, seg_k,
+                ecap_now,
+                prof_msg if os.environ.get("ANDIX_PROF_FILE") else None,
+            )
+        except _Stalled:
+            prof_msg("walk stalled at the chunk cap: to the joint schedule")
+            return None
         if res is not None:
             break
         if not overflowed or escalation == 2:

@@ -16,11 +16,21 @@ line each; any failed phase raises and the script exits non-zero:
    3 x 20 kbp subject-index group (whole, cut by max_iters=13 with
    max_events=1, and overflowing an 8-slot and a 50-slot event buffer)
    and over the first segmented dispatch of the 8 x 1 Mbp and of the
-   8 x 5 Mbp subject-index runs; print the times, the walks' counts and
-   each kernel's byte bound from the data of its run;
-4. one 1 Mbp subject's index built on the card and on the CPU: SA, LCP,
-   words and cache equal; the build's peak bytes per padded index symbol
-   at 1 Mbp and 5 Mbp;
+   8 x 5 Mbp subject-index runs; the sampled-PLCP LCP over the padded
+   joint texts of 8 x 1 Mbp (2^24) and 8 x 5 Mbp (100,663,296) and of the
+   8 x 1 Mbp clonal family (g1 = g0) with every level row it needs (its
+   LCP also equal to the host Φ LCP) and cut to andix's 14 rows (entries
+   left open, the overflow flag up), LCP and overflow flag; print the
+   times, the walks' counts and each kernel's byte bound from the data of
+   its run;
+4. one 1 Mbp subject's index built (hybrid: wide ranks, sampled-PLCP
+   LCP) on the card and on the CPU: SA, LCP, words and cache equal; the
+   build's levels and peak bytes per padded index symbol at 1 Mbp and
+   5 Mbp; then a 1 Mbp subject made of one 500 kbp block twice over,
+   whose own index needs 17 level rows, built as its group is: on the
+   card with every row (the kernel's LCP), on the card with the level
+   budget cut to andix's 14 rows (overflow, the host LCP) and on the CPU;
+   all three equal;
 5. a 4 x 30 kbp family with a duplicate and an unrelated genome through
    ``andix_torch.cli.main`` with ``--backend cuda`` and ``--backend cpu``:
    the PHYLIP bytes must be identical; then again with a ``--block-size``
@@ -36,7 +46,13 @@ line each; any failed phase raises and the script exits non-zero:
    CLI under ``ANDIX_INDEX=subject`` and ``ANDIX_INDEX=joint``:
    byte-identical PHYLIP, wall, phases, peak memory and launch counts of
    each (the subject run launches the search walk and never the joint
-   walk), and the matrix check;
+   walk), and the matrix check; then the repeat family (8 x 5 Mbp with
+   g1 = g0) on both schedules (``phase_repeat``): the joint block's LCP
+   from the kernel over every level row it needs, equal to the host Φ
+   LCP that a 14-row budget retreats to; the subject schedule with one
+   subject a group, whose groups of g0 and g1 stall and go to the joint
+   schedule; the same bytes from both; the block's SA and LCP on the CPU
+   backend too; and an 8 x 50 kbp copy on both schedules, card and CPU;
 8. the pair grid over several workers.  It prints
    ``torch.cuda.device_count()`` and the worker layout: with two or more
    cards the workers are the cards and the CLI runs with every card
@@ -63,8 +79,10 @@ the bytes it must move (each input read once, each output written once;
 for the walks, what this run's data needs, counted as set out at
 ``walk_bound`` and ``sx_bound``) over the H100's 3.35 TB/s.  The walks
 and the scan do a few integer operations per byte, so bytes bound them.
-No single PyTorch call computes any of the three functions, so
-``library_ms`` is null.
+The sampled-PLCP LCP's bytes are the text and SA read and the LCP
+written, 12 B a position, and the level entries the samples' walks read,
+8 B a sample and row.  No single PyTorch call computes any of the four
+functions, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -84,6 +102,9 @@ import torch
 NUCL = np.frombuffer(b"ACGT", dtype=np.uint8)
 RATES = [0.005, 0.01, 0.02, 0.03, 0.05, 0.08, 0.12]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+# andix's hybrid level buffer (a TPU's memory cap), which the phases cut
+# the port's to where they show the overflow and the host LCP
+ANDIX_ROWS = 14
 
 
 def say(msg: str) -> None:
@@ -364,8 +385,9 @@ def _sx_walk_setup(dev, n_genomes, length, seed):
     subjects = [subject_init(s, 0.025) for s in seqs]
     n = len(seqs)
     cache_k = sp.cache_depth(subjects, n, pipeline.memory_budget(dev))
-    salcp, sw, cache2, nreal = sp._build_group_index(
-        list(range(n)), subjects, cache_k, dev)
+    salcp, sw, cache2, nreal, _ = sp._build_group_index(
+        list(range(n)), subjects, cache_k, dev, pipeline.memory_budget(dev),
+        0)
     raw, q_off, qw_base = sp._host_query_blob(seqs, n)
     qw = sp._pack_query_words(raw, q_off, n, dev)
     q_len = q_off[1:] - q_off[:-1]
@@ -491,6 +513,90 @@ def sx_bound(counts, lanes: int) -> tuple[int, float]:
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def _joint_text(dev, fam, max_levels=None):
+    """A family's joint text as the CLI's one block holds it (every genome
+    a subject), padded, on the card; its SA and level rows as
+    ``prepare_block`` builds them (every row the text needs, or at most
+    ``max_levels``); the base width."""
+    from andix_torch.esa import doubling, joint
+    from andix_torch.esa.backend import bucket, pad_symbols
+    from andix_torch.sequence import Seq, subject_init
+
+    subjects = [subject_init(Seq(d, name), 0.025) for name, d in fam]
+    layout = joint.build_block({i: s.rs for i, s in enumerate(subjects)},
+                               {})
+    padded = bucket(layout.n)
+    sym = torch.from_numpy(pad_symbols(layout.sym, padded)).to(dev)
+    base = doubling.wide_base_width(len(layout.genome_ids), True)
+    L = doubling.plan_levels(padded, True, base, max_levels, True,
+                             "hybrid")[0]
+    sa, levels, lev_count, ovf = doubling.sa_loop(sym, True, L, base)
+    return sym, sa, levels, lev_count, ovf, base, layout.n
+
+
+def clonal(fam):
+    """The family with g1 replaced by a copy of g0."""
+    fam = list(fam)
+    fam[1] = ("g1", fam[0][1].copy())
+    return fam
+
+
+def phase_plcp(dev):
+    """The sampled-PLCP kernels against their plain version, exactly (LCP
+    and overflow flag), on the padded joint texts of 8 x 1 Mbp, 8 x 5 Mbp
+    and the 8 x 1 Mbp clonal family with every level row it needs, whose
+    LCP must also equal the host Φ LCP; then on the clonal family cut to
+    andix's 14 rows, where entries stay open and the flag rises; timed on
+    each.  Returns (kernel ms, plain ms, max_abs_err, bound ms) at
+    8 x 1 Mbp."""
+    from andix_torch import native
+    from andix_torch.esa import plcp
+
+    timing = None
+    for label, fam, cap in (
+            ("8x1Mbp", make_family(8, 1_000_000), None),
+            ("8x5Mbp", make_family(8, 5_000_000), None),
+            ("8x1Mbp clonal", clonal(make_family(8, 1_000_000)), None),
+            (f"8x1Mbp clonal, {ANDIX_ROWS} rows",
+             clonal(make_family(8, 1_000_000)), ANDIX_ROWS)):
+        sym, sa, levels, cnt, ovf_sa, base, n_real = _joint_text(dev, fam,
+                                                                 cap)
+        args = (sym, sa, levels, cnt, base)
+        got = plcp.plcp_lcp_hybrid(*args)
+        ref = plcp.plcp_lcp_hybrid_plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        if err:
+            raise AssertionError(f"plcp {label}: max_abs_err {err}")
+        if bool(got[1]) != (cap is not None):
+            raise AssertionError(f"plcp {label}: overflow flag {got[1]}")
+        n = sym.shape[0]
+        ms = cuda_ms(lambda: plcp.plcp_lcp_hybrid(*args), 5)
+        plain_ms = cuda_ms(lambda: plcp.plcp_lcp_hybrid_plain(*args), 1,
+                           warm=False)
+        nbytes = 12 * n + 8 * (n // 16) * len(levels)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        say(f"plcp_lcp_hybrid {label} (n={n}, base {base}, {cnt} levels, "
+            f"{len(levels)} rows, SA-loop overflow {ovf_sa}): kernel == "
+            f"plain, overflow flag {bool(got[1])}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B) "
+            f"= {100 * bound_ms / ms:.2f}% of the kernel")
+        if label == "8x1Mbp":
+            timing = (ms, plain_ms, err, bound_ms)
+        if label == "8x1Mbp clonal":
+            host = native.lcp_from_sa(sym.cpu().numpy(), sa.cpu().numpy(),
+                                      os.cpu_count() or 1)
+            lcp = got[0].cpu().numpy()
+            if (lcp[1:n_real] != host[1:n_real]).any():
+                raise AssertionError("plcp 8x1Mbp clonal: kernel LCP != "
+                                     "host Φ LCP")
+            say(f"  {label}: kernel LCP == host Φ LCP over the {n_real} "
+                f"real positions (longest {int(lcp.max())})")
+        del sym, sa, levels, got, ref, args
+        torch.cuda.empty_cache()
+    return timing
+
+
 def _peak_since(fn):
     """(result, seconds, peak device bytes above what was allocated when
     ``fn`` started)."""
@@ -505,11 +611,13 @@ def _peak_since(fn):
 
 def phase_index_build(dev):
     """One subject's index built on the card and on the CPU, equal; the
-    build's peak bytes per padded index symbol on the card, for the suffix
-    array + LCP and for the codes, words and k-mer cache."""
+    build's levels and peak bytes per padded index symbol on the card;
+    then a self-repeating subject's group build on the card with every
+    level row (the kernel's LCP) and cut to 14 rows (the host LCP), and on
+    the CPU, all equal."""
+    from andix_torch import kernels, pipeline
     from andix_torch import subject_pipeline as sp
-    from andix_torch.esa import doubling, joint, lcp as lcp_mod
-    from andix_torch.esa import subject_index
+    from andix_torch.esa import backend, doubling, joint, subject_index
     from andix_torch.esa.backend import pad_symbols
     from andix_torch.sequence import Seq, subject_init
 
@@ -521,11 +629,16 @@ def phase_index_build(dev):
         layout = joint.build_block({0: subject.rs}, {})
         lp = sp.index_length(subject)
         sym = torch.from_numpy(pad_symbols(layout.sym, lp))
+        max_levels = max(1, backend.level_budget(
+            lp, pipeline.memory_budget(dev)))
         torch.cuda.empty_cache()
+        levels = []
 
         def sa_lcp():
-            sa, levels = doubling.suffix_array(sym_d)
-            return sa, lcp_mod.lcp_from_levels(sa, levels), len(levels)
+            return doubling.sa_lcp_device(
+                sym_d, packed=True, max_levels=max_levels,
+                lcp_mode="hybrid", base_width=doubling.wide_base_width(
+                    1, True), on_sa=lambda c, L: levels.append((c, L)))
 
         def codes_words_cache():
             codes = subject_index.device_order_codes(sym_d)
@@ -533,33 +646,80 @@ def phase_index_build(dev):
                     subject_index.build_cache(codes, layout.n, cache_k))
 
         (sym_d,), t_up, p_up = _peak_since(lambda: (sym.to(dev),))
-        (sa, lcp, n_levels), t_sa, p_sa = _peak_since(sa_lcp)
+        (sa, lcp, ovf, _), t_sa, p_sa = _peak_since(sa_lcp)
         (words, cache), t_c, p_c = _peak_since(codes_words_cache)
+        if bool(ovf):
+            raise AssertionError(f"subject {length} bp: level overflow")
         # the build holds the text throughout, and SA + LCP while it packs
         peak = p_up + max(p_sa, 8 * lp + p_c)
         say(f"subject index build {length} bp on the card: Lp={lp}, "
-            f"{n_levels} rank levels; upload {t_up:.4f} s, SA+LCP "
-            f"{t_sa:.4f} s (peak {p_sa} B = {p_sa / lp:.2f} B/sym), codes+"
-            f"words+cache k={cache_k} {t_c:.4f} s (peak {p_c} B = "
-            f"{p_c / lp:.2f} B/sym); with the text: {peak / lp:.2f} B per "
-            f"padded index symbol")
+            f"{levels[0][0]} rank levels (at most {levels[0][1]} rows); upload "
+            f"{t_up:.4f} s, SA+LCP {t_sa:.4f} s (peak {p_sa} B = "
+            f"{p_sa / lp:.2f} B/sym), codes+words+cache k={cache_k} "
+            f"{t_c:.4f} s (peak {p_c} B = {p_c / lp:.2f} B/sym); with the "
+            f"text: {peak / lp:.2f} B per padded index symbol")
         peaks.append(peak / lp)
-        got = subject_index.build_subject_index(sym_d, layout.n, cache_k)
-        for a, b in zip(got, (sa, lcp, words, cache)):
+        got = subject_index.build_subject_index(sym_d, layout.n, cache_k,
+                                                True, max_levels)
+        for a, b in zip(got, (sa, lcp, ovf, words, cache)):
             if max_abs_err([a], [b]):
                 raise AssertionError("subject index: build_subject_index "
                                      "!= its steps")
         if length == 1_000_000:
-            ref = subject_index.build_subject_index(sym, layout.n, cache_k)
+            ref = subject_index.build_subject_index(sym, layout.n, cache_k,
+                                                    True, max_levels)
             n = layout.n
             pairs = [(sa.cpu(), ref[0]), (lcp[:n].cpu(), ref[1][:n]),
-                     (words.cpu(), ref[2]), (cache.cpu(), ref[3])]
+                     (ovf.cpu(), ref[2]), (words.cpu(), ref[3]),
+                     (cache.cpu(), ref[4])]
             if max_abs_err(*zip(*pairs)):
                 raise AssertionError("subject index: card != CPU")
             say(f"subject index build {length} bp: card == CPU (SA over "
                 f"Lp={lp}, LCP over n_real={n}, words, cache k={cache_k})")
         del got, sym, sym_d, sa, lcp, words, cache
         torch.cuda.empty_cache()
+
+    # one 500 kbp block twice over: the subject's own index needs 17 level
+    # rows; with them its LCP comes from the kernel, and with the level
+    # budget cut to andix's 14 rows the group build takes the host LCP
+    name, block = make_family(1, 500_000, seed=5)[0]
+    subject = subject_init(Seq(np.concatenate([block, block]), "rep"), 0.025)
+    builds = {}
+    cut = f"card, {ANDIX_ROWS} rows"
+    for label, device, rows in (("card", dev, None), (cut, dev, ANDIX_ROWS),
+                                ("CPU", torch.device("cpu"), None)):
+        level_budget = backend.level_budget
+        if rows is not None:
+            backend.level_budget = lambda lp, budget: rows
+        kernels.reset_launches()
+        try:
+            t0 = time.time()
+            out = sp._build_group_index([0], [subject], cache_k, device,
+                                        pipeline.memory_budget(device), 0)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            backend.level_budget = level_budget
+        builds[label] = (out, time.time() - t0,
+                         kernels.launches["plcp_lcp_hybrid"])
+    expect = {"card": (0, 1), cut: (1, 0), "CPU": (0, 0)}
+    for label, (out, _, launched) in builds.items():
+        if (out[4], launched) != expect[label]:
+            raise AssertionError(
+                f"self-repeating subject, {label}: {out[4]} host LCP round "
+                f"trips and {launched} PLCP launches, {expect[label]} "
+                f"expected")
+        if max_abs_err([x.cpu() for x in out[:4]],
+                       [x.cpu() for x in builds["CPU"][0][:4]]):
+            raise AssertionError(f"self-repeating subject: {label} != CPU")
+    say(f"subject index build, 1 Mbp of one 500 kbp block twice over: every "
+        f"level row on the card, LCP from the kernel "
+        f"({builds['card'][1]:.3f} s); cut to {ANDIX_ROWS} rows, level "
+        f"overflow and the host LCP round trip on the card "
+        f"({builds[cut][1]:.3f} s); every row on the CPU "
+        f"({builds['CPU'][1]:.3f} s); SA, LCP, words, cache all equal")
+    del builds, out
+    torch.cuda.empty_cache()
     return peaks
 
 
@@ -630,10 +790,10 @@ def _cli_run(paths, index, tmp, label):
     say(f"  kernel launches {launches}")
     if code != 0:
         raise AssertionError(f"{label}: exit code {code}")
-    return out, launches, peak, wall
+    return out, launches, peak, wall, phases
 
 
-def _check_matrix(out, n_genomes):
+def _check_matrix(out, n_genomes, rates=None):
     lines = out.strip().split("\n")
     n = int(lines[0])
     names = [ln[:10].strip() for ln in lines[1:]]
@@ -644,7 +804,7 @@ def _check_matrix(out, n_genomes):
     if not np.allclose(vals, vals.T, atol=1e-4):
         raise AssertionError("matrix not symmetric")
     for k in range(1, n):
-        rate = RATES[(k - 1) % len(RATES)]
+        rate = RATES[(k - 1) % len(RATES)] if rates is None else rates[k - 1]
         d = vals[names.index("g0"), names.index(f"g{k}")]
         if abs(d - rate) > 0.15 * rate:
             raise AssertionError(f"g0-g{k}: {d} vs simulated {rate}")
@@ -659,22 +819,24 @@ def phase_main_path(tmp, card):
     fam = make_family(8, 1_000_000)
     paths = write_fasta(tmp, fam)
     padded = bucket(sum(2 * len(d) + 2 for _, d in fam))
-    out, launches, peak, _ = _cli_run(paths, "auto", tmp,
+    out, launches, peak, _, _ = _cli_run(paths, "auto", tmp,
                                       f"8x1Mbp main path on {card}")
     say(f"  {peak / padded:.2f} B per padded symbol ({padded} padded "
         f"symbols)")
-    if min(launches["flag_scan"], launches["chain_walk_flat"]) <= 0 or \
+    if min(launches["flag_scan"], launches["chain_walk_flat"],
+           launches["plcp_lcp_hybrid"]) <= 0 or \
             launches["chain_walk_flat_sx"]:
         raise AssertionError(f"the joint path's kernels did not launch: "
                              f"{launches}")
     _check_matrix(out, 8)
 
-    out_sx, sx_launches, _, _ = _cli_run(paths, "subject", tmp,
-                                         f"8x1Mbp subject index on {card}")
+    out_sx, sx_launches, _, _, _ = _cli_run(
+        paths, "subject", tmp, f"8x1Mbp subject index on {card}")
     if out_sx != out:
         raise AssertionError(f"8x1Mbp subject-index PHYLIP != joint:\n"
                              f"{out_sx}\n{out}")
-    if sx_launches["chain_walk_flat_sx"] <= 0 or \
+    if min(sx_launches["chain_walk_flat_sx"],
+           sx_launches["plcp_lcp_hybrid"]) <= 0 or \
             sx_launches["chain_walk_flat"]:
         raise AssertionError(f"8x1Mbp subject run launches {sx_launches}")
     say("  8x1Mbp: ANDIX_INDEX=subject PHYLIP == joint schedule PHYLIP, "
@@ -686,10 +848,10 @@ def phase_full_size(tmp, card):
     """The slice's full-size path: 8 x 5 Mbp under both schedules."""
     fam = make_family(8, 5_000_000)
     paths = write_fasta(tmp, fam)
-    out_sx, sx_launches, _, _ = _cli_run(paths, "subject", tmp,
-                                         f"8x5Mbp subject index on {card}")
-    out_j, _, _, _ = _cli_run(paths, "joint", tmp,
-                              f"8x5Mbp joint schedule on {card}")
+    out_sx, sx_launches, _, _, _ = _cli_run(
+        paths, "subject", tmp, f"8x5Mbp subject index on {card}")
+    out_j, _, _, _, _ = _cli_run(paths, "joint", tmp,
+                                 f"8x5Mbp joint schedule on {card}")
     if out_sx != out_j:
         raise AssertionError(f"8x5Mbp subject-index PHYLIP != joint:\n"
                              f"{out_sx}\n{out_j}")
@@ -701,6 +863,147 @@ def phase_full_size(tmp, card):
         f"{len(out_sx)} bytes")
     _check_matrix(out_sx, 8)
     return sx_launches, out_j, paths
+
+
+def _stalls(prof_path) -> int:
+    with open(prof_path) as f:
+        return sum("walk stalled" in line for line in f)
+
+
+def phase_repeat(tmp, card):
+    """The repeat family (g1 = g0) on both schedules.
+
+    8 x 50 kbp on the card and on the CPU under ``ANDIX_GROUP_SUBJECTS=4``:
+    all four outputs equal, and on each subject run exactly one group (g0
+    to g3: the clonal pair's exact matches are longer than a search-walk
+    probe can finish under the chunk cap) goes to the joint schedule
+    while the other walks on the subject index.
+
+    8 x 5 Mbp on the card: the joint block keeps every level row it needs
+    and takes its LCP from the kernel; the subject schedule under
+    ``ANDIX_GROUP_SUBJECTS=1`` sends exactly the groups of g0 and g1 to
+    the joint schedule and walks the other six on the subject index; both
+    print the same bytes.  Then the block alone (``prepare_block``): its
+    SA and LCP from the kernel equal those of a backend whose budget
+    holds andix's 14 rows, which overflows and retreats to the host Φ LCP
+    (its phase lines show it), and those of the CPU backend (the plain
+    versions).  The whole CLI on the CPU at this size would spend most of
+    the script's time limit in the plain flag scans, so the CLI's bytes
+    are held to the CPU's on the 8 x 50 kbp copy."""
+    from andix_torch import kernels
+    from andix_torch import subject_pipeline as sp
+    from andix_torch.esa import backend, joint
+    from andix_torch.esa.backend import bucket
+    from andix_torch.sequence import Seq, subject_init
+
+    small = clonal(make_family(8, 50_000))
+    small_dir = os.path.join(tmp, "small")
+    os.makedirs(small_dir)
+    paths = write_fasta(small_dir, small)
+    outs = {}
+    os.environ["ANDIX_GROUP_SUBJECTS"] = "4"
+    try:
+        for index in ("joint", "subject"):
+            for be in ("cuda", "cpu"):
+                prof_path = os.path.join(small_dir, f"prof_{index}_{be}")
+                os.environ.update(ANDIX_INDEX=index,
+                                  ANDIX_PROF_FILE=prof_path)
+                t0 = time.time()
+                outs[index, be] = run_cli(["--backend", be,
+                                           "--progress=never"] + paths)
+                stalls = _stalls(prof_path)
+                say(f"repeat family 8x50kbp ANDIX_INDEX={index} --backend "
+                    f"{be}: exit {outs[index, be][0]}, {stalls} stalled "
+                    f"group walk(s), {time.time() - t0:.3f} s")
+                if stalls != (index == "subject"):
+                    raise AssertionError(f"repeat family 8x50kbp {index} "
+                                         f"{be}: {stalls} stalled groups")
+    finally:
+        for name in ("ANDIX_GROUP_SUBJECTS", "ANDIX_INDEX",
+                     "ANDIX_PROF_FILE"):
+            os.environ.pop(name, None)
+    if len(set(outs.values())) != 1 or outs["joint", "cuda"][0] != 0:
+        raise AssertionError(f"repeat family 8x50kbp outputs differ: {outs}")
+    say("  8x50kbp repeat family: cuda == cpu on both schedules, and joint "
+        f"== subject, {len(outs['joint', 'cuda'][1])} bytes")
+
+    fam = clonal(make_family(8, 5_000_000))
+    paths = write_fasta(tmp, fam)
+    padded = bucket(sum(2 * len(d) + 2 for _, d in fam))
+    out_j, launches_j, peak_j, wall_j, ph_j = _cli_run(
+        paths, "joint", tmp, f"8x5Mbp repeat family joint on {card}")
+    if any("overflow" in p or "host LCP" in p for p in ph_j) or \
+            launches_j["plcp_lcp_hybrid"] < 1:
+        raise AssertionError("8x5Mbp repeat family: the joint block did not "
+                             "take the kernel's LCP")
+    levels = [p for p in ph_j if "SA doubling" in p][0].split("] ")[-1]
+    os.environ["ANDIX_GROUP_SUBJECTS"] = "1"
+    try:
+        out_s, _, peak_s, wall_s, ph_s = _cli_run(
+            paths, "subject", tmp, f"8x5Mbp repeat family subject on {card}")
+    finally:
+        del os.environ["ANDIX_GROUP_SUBJECTS"]
+    for line in sp.LAST_BALANCE:
+        say(f"  {line}")
+    stalled = [p for p in ph_s if "walk stalled" in p]
+    walked = [p for p in ph_s if "sx: segmented walk" in p]
+    if len(stalled) != 2 or len(walked) != 6:
+        raise AssertionError(f"8x5Mbp repeat family subject: {len(stalled)} "
+                             f"groups stalled, {len(walked)} walked (2 and "
+                             f"6 expected)")
+    if out_j != out_s:
+        raise AssertionError(f"8x5Mbp repeat family: subject PHYLIP != "
+                             f"joint:\n{out_s}\n{out_j}")
+    say(f"  8x5Mbp repeat family: joint == subject PHYLIP; joint "
+        f"{levels}, LCP from the kernel; subject: the groups of g0 and g1 "
+        f"stalled and went to the joint schedule, the other six walked on "
+        f"the subject index; walls joint {wall_j:.3f} s, subject "
+        f"{wall_s:.3f} s; joint peak {peak_j} B = {peak_j / padded:.2f} B "
+        f"per padded symbol ({padded}); subject peak {peak_s} B")
+    _check_matrix(out_j, 8, rates=[0.0] + RATES[1:7])
+
+    # the block's SA and LCP: the kernel's, the host's after an overflow
+    # of andix's 14 rows, and the CPU backend's
+    subjects = [subject_init(Seq(d, name), 0.025) for name, d in fam]
+    layout = joint.build_block({i: s.rs for i, s in enumerate(subjects)},
+                               {})
+    n = layout.n
+    cut = (backend.LEVEL_RESERVE_BYTES_PER_SYM + 4 * ANDIX_ROWS) * bucket(n)
+    ctxs, phases = [], []
+    for device, budget in ((torch.device("cuda", 0), None),
+                           (torch.device("cuda", 0), cut),
+                           (torch.device("cpu"), None)):
+        prof_path = os.path.join(tmp, f"prof_block_{len(ctxs)}")
+        os.environ["ANDIX_PROF_FILE"] = prof_path
+        kernels.reset_launches()
+        t0 = time.time()
+        try:
+            ctx = backend.TorchBackend(device, budget=budget).prepare_block(
+                layout)
+        finally:
+            del os.environ["ANDIX_PROF_FILE"]
+        with open(prof_path) as f:
+            phases.append([line.strip() for line in f])
+        ctxs.append((ctx.sa[:n].cpu(), ctx.lcp[:n].cpu(),
+                     kernels.launches["plcp_lcp_hybrid"], time.time() - t0))
+        del ctx
+        torch.cuda.empty_cache()
+    (sa_k, lcp_k, launched_k, _), (sa_h, lcp_h, launched_h, _), \
+        (sa_c, lcp_c, _, t_c) = ctxs
+    retreat = [p for p in phases[1] if "overflow" in p or "host LCP" in p]
+    if launched_k != 1 or any("host LCP" in p for p in phases[0] + phases[2]) \
+            or len(retreat) != 2 or launched_h != 0:
+        raise AssertionError(f"8x5Mbp repeat block: phases {phases}")
+    if max_abs_err([sa_k, lcp_k, sa_k, lcp_k], [sa_h, lcp_h, sa_c, lcp_c]):
+        raise AssertionError("8x5Mbp repeat block: the kernel's SA and LCP "
+                             "!= the host Φ LCP's or the CPU's")
+    say(f"  8x5Mbp repeat block ({n} real of {bucket(n)} padded symbols): "
+        f"SA and LCP from the kernel == after the {ANDIX_ROWS}-row budget's "
+        f"retreat ({'; '.join(p.split('] ')[-1] for p in retreat)}) == the "
+        f"CPU backend's ({t_c:.1f} s; "
+        f"{'; '.join(p.split('] ')[-1] for p in phases[2][1:3])}); longest "
+        f"adjacent LCP {int(lcp_k.max())}")
+    del ctxs, sa_k, lcp_k, sa_h, lcp_h, sa_c, lcp_c
 
 
 def _run_grid(paths, devices, env):
@@ -866,6 +1169,7 @@ def phase_multi_card(paths_5m, joint_5m, paths_1m, joint_1m):
 
 
 def main() -> int:
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -889,6 +1193,7 @@ def main() -> int:
     fs_t = phase_flag_scan(dev)
     walk_t = phase_walk(dev)
     sx_t = phase_walk_sx(dev)
+    plcp_t = phase_plcp(dev)
     phase_index_build(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli_parity(tmp)
@@ -896,6 +1201,8 @@ def main() -> int:
             tempfile.TemporaryDirectory() as tmp5:
         launches, out_1m, paths_1m = phase_main_path(tmp1, smi)
         sx_launches, out_5m, paths_5m = phase_full_size(tmp5, smi)
+        with tempfile.TemporaryDirectory() as tmp_rep:
+            phase_repeat(tmp_rep, smi)
         phase_multi_card(paths_5m, out_5m, paths_1m, out_1m)
 
     table = {"kernels": [
@@ -917,7 +1224,14 @@ def main() -> int:
          "launches": sx_launches["chain_walk_flat_sx"],
          "max_abs_err": sx_t[2], "ms": sx_t[0], "plain_ms": sx_t[1],
          "bound_ms": sx_t[3], "bound_by": "bytes", "library_ms": None},
+        {"name": "plcp_lcp_hybrid", "route": "cuda",
+         "source": "andix_torch/csrc/plcp.cu",
+         "replaces": "andix/esa/plcp.py:267",
+         "launches": launches["plcp_lcp_hybrid"], "max_abs_err": plcp_t[2],
+         "ms": plcp_t[0], "plain_ms": plcp_t[1], "bound_ms": plcp_t[3],
+         "bound_by": "bytes", "library_ms": None},
     ]}
+    say(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -108,3 +108,39 @@ def test_auto_index_on_a_split_plan(capsys, family, monkeypatch):
     assert out.startswith("5\n") and code == 1  # the unrelated genome: nan
     _both(capsys, ["--progress=never"] + family)
     assert len(runs) == 1
+
+
+@pytest.mark.parametrize("retreat", [False, True])
+@pytest.mark.parametrize("index", ["joint", "subject"])
+def test_duplicated_genome_on_both_schedules(capsys, tmp_path, rng, dna,
+                                             mutator, monkeypatch, index,
+                                             retreat):
+    """A genome twice in the family and one made of a block twice over,
+    on each schedule: with the level buffer that holds them, and with a
+    level budget of 3 rows, where every LCP comes from the host Φ
+    algorithm; stdout bytes and exit code equal andix's."""
+    from andix_torch.esa import backend
+
+    base = dna(rng, 1500)
+    genomes = [base, base.copy(), np.concatenate([base[:700], base[:700]]),
+               mutator(rng, base, 0.04)]
+    paths = []
+    for k, s in enumerate(genomes):
+        p = tmp_path / f"d{k}.fasta"
+        _write_fasta(p, [(f"d{k}", _s(s))])
+        paths.append(str(p))
+    monkeypatch.setenv("ANDIX_INDEX", index)
+    monkeypatch.setenv("ANDIX_SX_MESH", "0")
+    calls = []
+    if retreat:
+        lcp_from_sa = backend.native.lcp_from_sa
+
+        def spy(sym, sa, threads=0):
+            calls.append(len(sa))
+            return lcp_from_sa(sym, sa, threads)
+
+        monkeypatch.setattr(backend, "level_budget", lambda n, budget: 3)
+        monkeypatch.setattr(backend.native, "lcp_from_sa", spy)
+    code, out = _both(capsys, ["--progress=never"] + paths)
+    assert out.startswith("4\n")
+    assert bool(calls) == retreat

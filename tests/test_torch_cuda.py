@@ -6,8 +6,8 @@ the card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-(the CPU tests hold the plain versions, and the walk kernel's host twin,
-to the JAX package)."""
+(the CPU tests hold the plain versions, and the kernels' host twins, to
+the JAX package)."""
 
 import numpy as np
 import pytest
@@ -16,7 +16,7 @@ import torch
 from andix_torch import kernels, subject_pipeline
 from andix_torch.chain import replay_device as rd
 from andix_torch.chain import segmented, walk_sx
-from andix_torch.esa import joint, scans, subject_index
+from andix_torch.esa import doubling, joint, plcp, scans, subject_index
 from andix_torch.esa.backend import TorchBackend, pad_symbols
 from andix_torch.sequence import Seq, subject_init
 
@@ -193,8 +193,8 @@ def _sx_group(device, k, cache_k):
     cut into k cold segments."""
     seqs = _family()
     subjects = [subject_init(s, 0.025) for s in seqs]
-    salcp, sw, cache2, nreal = subject_pipeline._build_group_index(
-        [0, 1, 2], subjects, cache_k, device)
+    salcp, sw, cache2, nreal, _ = subject_pipeline._build_group_index(
+        [0, 1, 2], subjects, cache_k, device, 1 << 34, 0)
     raw, q_off, qw_base = subject_pipeline._host_query_blob(seqs, 3)
     qw = subject_pipeline._pack_query_words(raw, q_off, 3, device)
     arr = {n: [] for n in walk_sx.SX_LANE_FIELDS}
@@ -262,10 +262,81 @@ def test_subject_index_build_card_equals_cpu(cuda):
         layout.sym, subject_pipeline.index_length(subject)))
     got = subject_index.build_subject_index(sym.to(cuda), layout.n, 8)
     ref = subject_index.build_subject_index(sym, layout.n, 8)
-    sa, lcp, words, cache = (x.cpu() for x in got)
+    sa, lcp, ovf, words, cache = (x.cpu() for x in got)
     assert torch.equal(sa, ref[0])
     assert torch.equal(lcp[: layout.n], ref[1][: layout.n])
-    assert torch.equal(words, ref[2]) and torch.equal(cache, ref[3])
+    assert not ovf and not ref[2]
+    assert torch.equal(words, ref[3]) and torch.equal(cache, ref[4])
+
+
+def _plcp_block(device, clonal):
+    """The 3 x 3000 bp family's joint text on ``device`` (g1 = g0 when
+    ``clonal``), its SA and full level buffer, and the base width."""
+    seqs = _family()
+    if clonal:
+        seqs[1] = Seq(seqs[0].data.copy(), "g1")
+    subjects = [subject_init(s, 0.025) for s in seqs]
+    layout = joint.build_block({i: s.rs for i, s in enumerate(subjects)},
+                               {})
+    padded = -(-layout.n // 1024) * 1024
+    sym = torch.from_numpy(pad_symbols(layout.sym, padded)).to(device)
+    base = doubling.wide_base_width(3, True)
+    L = doubling.levels_needed(padded, True, base)
+    sa, levels, lev_count, ovf = doubling.sa_loop(sym, True, L, base)
+    assert not ovf
+    return sym, sa, levels, lev_count, base
+
+
+@pytest.mark.parametrize("clonal", [False, True])
+@pytest.mark.parametrize("rows", ["all", 2, 0])
+def test_plcp_kernel_equals_plain(cuda, clonal, rows):
+    """The sampled-PLCP kernels == the plain version (LCP and overflow
+    flag), with every level row and with the top rows cut, where the
+    clonal pair's 6 kbp LCPs leave entries open."""
+    sym, sa, levels, lev_count, base = _plcp_block(cuda, clonal)
+    k = lev_count if rows == "all" else min(rows, lev_count)
+    lev = levels[: max(k, 1)]
+    got = plcp.plcp_lcp_hybrid(sym, sa, lev, k, base)
+    ref = plcp.plcp_lcp_hybrid_plain(sym, sa, lev, k, base)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    assert bool(got[1]) == bool(ref[1]) == (clonal and rows != "all")
+
+
+def test_plcp_kernel_keeps_every_row(cuda):
+    """Two identical 60 kbp genomes: with the level rows the text needs,
+    more than andix's 14-row hybrid cap, the card's build takes its LCP
+    from the kernel, with no overflow, equal to the host Φ LCP."""
+    from andix_torch import native
+
+    rng = np.random.default_rng(91)
+    data = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 60_000)]
+    subjects = [subject_init(Seq(data.copy(), f"g{i}"), 0.025)
+                for i in range(2)]
+    layout = joint.build_block({i: s.rs for i, s in enumerate(subjects)},
+                               {})
+    padded = -(-layout.n // 1024) * 1024
+    sym = torch.from_numpy(pad_symbols(layout.sym, padded))
+    base = doubling.wide_base_width(2, True)
+    counts = []
+    sa, lcp, ovf, _ = doubling.sa_lcp_device(
+        sym.to(cuda), True, lcp_mode="hybrid", base_width=base,
+        on_sa=lambda c, L: counts.append((c, L)))
+    assert not bool(ovf) and counts[0][1] > 14
+    host = native.lcp_from_sa(sym.numpy(), sa.cpu().numpy(), 2)
+    assert (lcp.cpu().numpy()[1:layout.n] == host[1:layout.n]).all()
+
+
+def test_sa_lcp_card_equals_cpu(cuda):
+    """The whole build, hybrid mode, on the card and on the CPU."""
+    sym, *_ = _plcp_block(torch.device("cpu"), False)
+    base = doubling.wide_base_width(3, True)
+    got = doubling.sa_lcp_device(sym.to(cuda), True, lcp_mode="hybrid",
+                                 base_width=base)
+    ref = doubling.sa_lcp_device(sym, True, lcp_mode="hybrid",
+                                 base_width=base)
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_wrappers_refuse_bad_inputs(cuda):
@@ -280,6 +351,13 @@ def test_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):  # 4 bytes off a 16-byte boundary
         scans.flag_scan(torch.zeros(9, dtype=torch.int32, device=cuda)[1:],
                         f, v)
+    z = torch.zeros(32, dtype=torch.int32, device=cuda)
+    for bad in ((z[:24], z[:24], z[:24].view(1, 24)),  # not 16 | n
+                (z, z.cpu(), z.view(1, 32)),
+                (z, z, z.view(1, 32).to(torch.int64)),
+                (z, z[:16], z.view(2, 16))):
+        with pytest.raises(ValueError):
+            plcp.plcp_lcp_hybrid(*bad, 1, 4)
     index, lanes = _sx_group(cuda, 1, 2)
     for bad in (dict(lanes, row=lanes["row"].cpu()),
                 dict(lanes, pos0=lanes["pos0"][:1])):

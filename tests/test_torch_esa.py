@@ -1,5 +1,6 @@
 """andix_torch ESA pieces against the JAX package, exactly: suffix array
-and LCP, range-min, matching statistics, subject tables, the block
+and LCP (``doubling.sa_lcp_device`` in levels mode on arbitrary texts;
+the block-text cases of both modes are in test_torch_plcp.py), range-min, matching statistics, subject tables, the block
 tables of ``prepare_block``, and the verbatim host-module copies."""
 
 import filecmp
@@ -14,11 +15,11 @@ import jax.numpy as jnp
 from andix.chain import replay_device as jrd
 from andix.esa import backend_jax, doubling as jdoubling
 from andix.esa import joint as jjoint
-from andix.esa import matchstats_jax, rmq as jrmq, sa_numpy
+from andix.esa import matchstats_jax, plcp as jplcp, rmq as jrmq, sa_numpy
 from andix.runtime import Context
 from andix.sequence import Seq, subject_init
 from andix_torch.chain import replay_device as rd
-from andix_torch.esa import backend, doubling, lcp, matchstats, rmq
+from andix_torch.esa import backend, doubling, matchstats, rmq
 
 torch.set_num_threads(2)
 
@@ -55,28 +56,30 @@ def _texts(rng, dna, mutator):
 
 def test_sa_lcp_equal_jax_and_numpy(rng, dna, mutator):
     for name, sym in _texts(rng, dna, mutator):
-        sa, levels = doubling.suffix_array(torch.from_numpy(sym))
-        got_lcp = lcp.lcp_from_levels(sa, levels).numpy()
-        j_sa, j_lcp, ovf, _ = jdoubling.sa_lcp_device(jnp.asarray(sym))
-        assert not bool(ovf)
+        t = torch.from_numpy(sym)
+        sa, got_lcp, ovf, may_ovf = doubling.sa_lcp_device(t)
+        got_lcp = got_lcp.numpy()
+        j_sa, j_lcp, j_ovf, _ = jdoubling.sa_lcp_device(jnp.asarray(sym))
+        assert not bool(j_ovf) and not bool(ovf) and not may_ovf
         ref_sa = sa_numpy.suffix_array(sym)
         assert (sa.numpy() == np.asarray(j_sa)).all(), name
         assert (sa.numpy() == ref_sa).all(), name
         assert (got_lcp == np.asarray(j_lcp)).all(), name
         assert (got_lcp == sa_numpy.lcp_array(sym, ref_sa)).all(), name
         # levels stop at the text's longest repeat
-        assert 1 << len(levels) > got_lcp.max(), name
+        L = doubling.levels_needed(len(sym))
+        lev_count = doubling.sa_loop(t, False, L, 1)[2]
+        assert 1 << lev_count > got_lcp.max(), name
 
 
 def test_sa_trivial_sizes():
     for sym in ([], [5], [2, 1], [1, 1]):
         s = np.asarray(sym, np.int32)
-        sa, levels = doubling.suffix_array(torch.from_numpy(s))
+        sa, lcp, _, _ = doubling.sa_lcp_device(torch.from_numpy(s))
         assert (sa.numpy() == sa_numpy.suffix_array(s)).all()
-        got = lcp.lcp_from_levels(sa, levels).numpy()
         if len(s):
-            assert (got == sa_numpy.lcp_array(s, sa_numpy.suffix_array(s))
-                    ).all()
+            assert (lcp.numpy() == sa_numpy.lcp_array(
+                s, sa_numpy.suffix_array(s))).all()
 
 
 @pytest.mark.parametrize("n", [1, 7, 9, 513, 3000, 70000])
@@ -128,6 +131,68 @@ def test_prepare_block_equals_jax(jax_block):
                  (ctx.q_base_h, jctx.q_base_h), (ctx.q_off, jctx.q_off),
                  (ctx.query_blob, jctx.query_blob)):
         assert (np.asarray(a) == np.asarray(b)).all()
+
+
+@pytest.mark.parametrize("byte", [None, ord("N")])
+def test_prepare_block_modes_equal_jax(rng, dna, mutator, byte):
+    """A block in the block alphabet (12-wide ranks, hybrid LCP) and one
+    with a foreign byte in a genome (4-wide clamped ranks, the level
+    walk): SA, LCP and the alphabet check equal andix's."""
+    seqs, subjects, _ = _family_block(rng, dna, mutator)
+    rs = subjects[1].rs.copy()
+    if byte is not None:
+        rs[100:105] = byte
+    layout = jjoint.build_block({0: subjects[0].rs, 1: rs},
+                                {2: seqs[2].data})
+    present = np.nonzero(np.bincount(layout.u8, minlength=256))[0]
+    assert backend.alphabet_ok(torch.from_numpy(layout.sym), layout.n) == (
+        byte is None) == all(int(b) in jplcp.ALPHABET_U8 for b in present)
+    jctx = backend_jax.JaxBackend().prepare_block(layout)
+    ctx = backend.TorchBackend(torch.device("cpu")).prepare_block(layout)
+    n_real = layout.n
+    assert (ctx.sa.numpy() == np.asarray(jctx.sa_d)).all()
+    assert (ctx.lcp.numpy()[: n_real + 1]
+            == np.asarray(jctx.lcp_d)[: n_real + 1]).all()
+
+
+def test_level_overflow_takes_the_host_lcp(rng, dna, monkeypatch):
+    """andix's recipe (test_level_budget_overflow_falls_back_to_host): two
+    identical 800 bp genomes and a level budget of (68 - 40) / 4 = 7 rows,
+    fewer than they need, so the SA loop overflows; the block takes the
+    host Φ LCP and the counts are andix's."""
+    from andix import pipeline as jpipeline
+    from andix.sequence import Seq as JSeq
+    from andix_torch import pipeline
+    from andix_torch.runtime import Context as TContext
+    from andix_torch.sequence import Seq as TSeq
+
+    monkeypatch.setenv("ANDIX_INDEX", "joint")
+    monkeypatch.setenv("ANDIX_SHARDED", "0")
+    base = dna(rng, 800)
+    want = jpipeline.calculate_matrix([JSeq(base, "a"), JSeq(base.copy(), "b")],
+                                      Context(), jpipeline.NumpyBackend())
+    budgets, calls = [], []
+    lcp_from_sa = backend.native.lcp_from_sa
+
+    def budget(padded_n, _):
+        budgets.append(padded_n)
+        return (68 * padded_n - 40 * padded_n) // (4 * padded_n)
+
+    def spy(sym, sa, threads=0):
+        calls.append(len(sa))
+        return lcp_from_sa(sym, sa, threads)
+
+    monkeypatch.setattr(backend, "level_budget", budget)
+    monkeypatch.setattr(backend.native, "lcp_from_sa", spy)
+    got = pipeline.calculate_matrix(
+        [TSeq(base, "a"), TSeq(base.copy(), "b")], TContext(),
+        [torch.device("cpu")])
+    assert budgets == [backend.bucket(2 * (2 * 800 + 2))]
+    assert calls == budgets, "the block did not take the host LCP"
+    for i in range(2):
+        for j in range(2):
+            assert (got[i][j].counts == want[i][j].counts).all()
+            assert got[i][j].seq_len == want[i][j].seq_len
 
 
 def _port_ctx(layout, jctx):

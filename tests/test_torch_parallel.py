@@ -347,7 +347,7 @@ def test_workers_on_one_device_split_its_memory(monkeypatch, schedule):
     monkeypatch.setenv("ANDIX_GROUP_SUBJECTS", "2")
     full = pipeline.memory_budget(CPU)
     assert pipeline.memory_budget(CPU, 2) == full // 2
-    seen = {"plan": [], "groups": [], "shares": []}
+    seen = {"plan": [], "groups": [], "shares": [], "budgets": []}
     plan, groups = pipeline.device_plan, subject_pipeline.plan_groups
     monkeypatch.setattr(pipeline, "device_plan", lambda b, s, budget: (
         seen["plan"].append(budget) or plan(b, s, budget)))
@@ -357,9 +357,10 @@ def test_workers_on_one_device_split_its_memory(monkeypatch, schedule):
                             or groups(s, t, lm, k, budget, fixed)))
     init = TorchBackend.__init__
 
-    def spy_init(self, device, threads=0, share=1):
+    def spy_init(self, device, threads=0, share=1, budget=None):
         seen["shares"].append(share)
-        init(self, device, threads, share)
+        seen["budgets"].append(budget)
+        init(self, device, threads, share, budget)
 
     monkeypatch.setattr(TorchBackend, "__init__", spy_init)
     fam = _family(4, 600, seed=19)
@@ -369,8 +370,10 @@ def test_workers_on_one_device_split_its_memory(monkeypatch, schedule):
     if schedule == "subject":
         assert seen["groups"] == [full, full // 2]
     else:
-        # the one-worker run's backend, then each sharded worker's
+        # the one-worker run's backend, then each sharded worker's; each
+        # takes its budget from the plan, not from the device again
         assert seen["shares"] == [1, 2, 2]
+        assert seen["budgets"] == [full, full // 2, full // 2]
 
 
 @pytest.mark.parametrize("local_world, count, device, workers, share", [
@@ -504,3 +507,77 @@ def test_two_processes_a_failing_rank_fails_both(tmp_path, failing_rank):
     assert [code != 0 for code, _, _ in res] == [True, True], res
     assert [out for _, out, _ in res] == ["", ""]
     assert "injected worker failure" in res[failing_rank][2]
+
+
+# two ranks gather one row each; rank 1 reaches the gather 3 s late.  Both
+# ranks start joining the group together (each waits for the other's
+# "ready" file), so the join never waits long, and each prints "joined"
+# once it is in the group.
+_LATE_GATHER = (
+    "import os, sys, time\n"
+    "import numpy as np\n"
+    "from andix_torch import _distributed, parallel\n"
+    "from andix_torch.model import CountMatrix\n"
+    "_distributed.COLLECTIVE_TIMEOUT_S = int(sys.argv[1])\n"
+    "rank = int(os.environ['RANK'])\n"
+    "open(f'ready{rank}', 'w').close()\n"
+    "while not os.path.exists(f'ready{1 - rank}'):\n"
+    "    time.sleep(0.01)\n"
+    "_distributed.maybe_init_distributed()\n"
+    "print('joined', flush=True)\n"
+    "if rank == 1:\n"
+    "    time.sleep(3)\n"
+    "row = {1 - rank: CountMatrix(np.full(16, rank, np.int64), 7)}\n"
+    "got = parallel.gather_rows({rank: row}, 2)\n"
+    "print(sorted(got) if got is not None else '')\n"
+    "_distributed.shutdown()\n"
+)
+
+
+def _late_gather(tmp_path, timeout_s):
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        penv = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        penv.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1", RANK=str(rank),
+                    LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _LATE_GATHER, str(timeout_s)], env=penv,
+            cwd=tmp_path, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    out = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=120)
+            out.append((p.returncode, so, se))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+@pytest.mark.parametrize("timeout_s,late_rank_fits", [(2, False),
+                                                      (10, True)])
+def test_collective_timeout_governs_the_gather(tmp_path, timeout_s,
+                                               late_rank_fits):
+    """Rank 0 waits in ``gather_rows`` for rank 1, which comes 3 s late:
+    with the timeout constant at 2 s the gather fails after both ranks
+    joined the group, at 10 s it completes and rank 0 holds both rows."""
+    res = _late_gather(tmp_path, timeout_s)
+    if late_rank_fits:
+        assert [(c, o) for c, o, _ in res] == [(0, "joined\n[0, 1]\n"),
+                                               (0, "joined\n\n")], res
+    else:
+        assert res[0][0] != 0 and res[0][1] == "joined\n", res
+        assert res[1][1].startswith("joined\n"), res
+        assert "timed out" in res[0][2].lower() or "timeout" in res[0][2].lower()
+
+
+def test_collective_timeout_is_hour_scale():
+    """The default outlasts a day-long run's gap between ranks."""
+    from andix_torch import _distributed
+
+    assert _distributed.COLLECTIVE_TIMEOUT_S >= 86_400

@@ -7,10 +7,11 @@ tests/test_subject_index.py; plus the verbatim copy of the numpy half.
 Then the schedule built on the index (``ANDIX_INDEX=subject``,
 ``--backend cpu``) against andix's on the remaining families of
 tests/test_walk_sx.py (low-memory groups, LogDet, an 8-slot event
-buffer), and the port's two repairs of the group driver: an odd
-``ANDIX_EVENT_CAP`` works, and a segmented resolve that does not
-converge sends the group to the joint schedule without escalating the
-event buffer."""
+buffer) and on a clonal pair and a self-repeating genome, and the port's
+repairs of the group walk: an odd ``ANDIX_EVENT_CAP`` works, a
+segmented resolve that does not converge, and a walk that would repeat a
+dispatch forever, send the group to the joint schedule; a level
+overflow takes the host LCP."""
 
 import inspect
 
@@ -155,8 +156,11 @@ def test_build_subject_index_equals_fused_build(cases):
     — both are 0 there, since padding symbols are all distinct."""
     for name, layout, sym, _, ref in cases:
         assert not ref["ovf"], name
-        sa, lcp, words, cache = si.build_subject_index(
-            torch.from_numpy(sym), layout.n, CACHE_K)
+        sa, lcp, ovf, words, cache = si.build_subject_index(
+            torch.from_numpy(sym), layout.n, CACHE_K,
+            backend.alphabet_ok(torch.from_numpy(sym), layout.n),
+            level_budget(len(sym)))
+        assert not ovf, name
         n = layout.n
         assert (sa.numpy() == ref["sa"]).all(), name
         assert (lcp.numpy()[:n] == ref["lcp"][:n]).all(), name
@@ -202,6 +206,11 @@ def _family(n, length, rates, seed):
     return out
 
 
+def _clonal(fam):
+    """The family with g1 replaced by a copy of g0."""
+    return [(nm, fam[0][1].copy() if nm == "g1" else d) for nm, d in fam]
+
+
 # (family, environment, low memory, LogDet)
 FAMILIES = {
     "low_memory_groups": (_family(4, 2000, [0.03, 0.15], 41),
@@ -211,6 +220,11 @@ FAMILIES = {
     "event_cap_8": (_family(3, 2000, [0.02, 0.1], 61),
                     {"ANDIX_CHAIN_SEGMENTS": 4, "ANDIX_EVENT_CAP": 8},
                     False, False),
+    "clonal": (_clonal(_family(3, 3000, [0.05], 71)), {}, False, False),
+    # g0 is one 800 bp block twice over: its own index holds the repeat
+    "self_repeat": ([(nm, np.concatenate([d, d]))
+                     for nm, d in _family(3, 800, [0.03, 0.1], 67)],
+                    {}, False, False),
 }
 
 
@@ -304,6 +318,41 @@ def test_nonconvergence_goes_to_the_joint_schedule(jax_grids, driver_calls,
     assert len(driver_calls["sx"]) == 1
     assert driver_calls["blocks"] == [[0, 1, 2]]
     assert "did not converge" in capsys.readouterr().err
+
+
+def test_stalled_walk_goes_to_the_joint_schedule(jax_grids, driver_calls,
+                                                 monkeypatch):
+    """A chunk cap of 64 iterations: the clonal pair's exact matches need
+    more, so ``segmented`` would repeat a dispatch unchanged forever (as
+    andix's does); the group goes to the joint schedule after the first
+    repeat, with andix's matrix."""
+    monkeypatch.setattr(segmented, "CHUNK_ITERS", 64)
+    monkeypatch.setattr(segmented, "CHUNK_ITERS_MAX", 64)
+    assert _equal(_grids("clonal"), jax_grids["clonal"])
+    assert driver_calls["blocks"] == [[0, 1, 2]]
+    assert len(driver_calls["sx"]) == 1
+
+
+def test_level_overflow_takes_the_host_lcp(jax_grids, monkeypatch):
+    """A level budget of 3 rows: the self-repeating subject's index
+    overflows its level buffer, its LCP is taken on the host (Φ), and
+    the matrix is andix's."""
+    calls = []
+    lcp_from_sa = backend.native.lcp_from_sa
+
+    def spy(sym, sa, threads=0):
+        calls.append(len(sa))
+        return lcp_from_sa(sym, sa, threads)
+
+    monkeypatch.setattr(backend, "level_budget", lambda lp, budget: 3)
+    monkeypatch.setattr(backend.native, "lcp_from_sa", spy)
+    assert _equal(_grids("self_repeat"), jax_grids["self_repeat"])
+    assert calls, "no subject took the host LCP"
+    calls.clear()
+    monkeypatch.undo()
+    monkeypatch.setattr(backend.native, "lcp_from_sa", spy)
+    assert _equal(_grids("self_repeat"), jax_grids["self_repeat"])
+    assert not calls  # 14 rows hold the repeat
 
 
 def test_plan_groups_fit_the_budget():
