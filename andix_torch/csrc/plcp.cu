@@ -1,30 +1,44 @@
-// Sampled-PLCP adjacent LCP on the card: one thread an entry.
+// Sampled-PLCP adjacent LCP on the card.
 //
-// Replaces andix/esa/plcp.py:plcp_lcp_hybrid_traced (_ladder :110 with its
-// while_loop at :186, _fill_from_samples :224), an XLA program of
-// lock-step passes over compacted buffers: one global pass counter, tiers
-// that shrink the survivors' buffers 4x at a time, and a gather pair per
-// pass.  Those are the TPU's workarounds for data-dependent loops; here an
-// entry runs its own loop to the end in registers (plcp_lane.cuh), and the
-// pass cap becomes a per-thread probe cap with the same outcome.
+// Replaces andix/esa/plcp.py:267, plcp_lcp_hybrid_traced (_ladder :110
+// with its while_loop at :186, _fill_from_samples :224), an XLA program
+// of lock-step passes over compacted buffers: one global pass counter,
+// tiers that shrink the survivors' buffers 4x at a time, and a gather
+// pair per pass.  Those are the TPU's workarounds for data-dependent
+// loops; here an entry runs its own loop to the end in registers
+// (plcp_lane.cuh), and the pass cap becomes a per-thread probe cap with
+// the same outcome.
+//
+// What bounds it.  The bytes it must move are the text and SA read and
+// the LCP written, 12 B a position, and the level entries the samples'
+// walks read.  What it spends is random sectors: every probe reads two
+// words at positions the data picks, and a walk reads two rank entries a
+// level row.  So the design keeps the probed data small enough for the
+// 50 MB L2 and walks as few samples as it can:
+//   * the text is packed 4 bits a symbol, 16 to a 64-bit word (N / 2 B:
+//     8 MB at 2^24, 50 MB at 100,663,296), read through the read-only
+//     path.  A probe joins the two aligned words around its position
+//     with a funnel shift, mostly within one 32-byte sector.  SA is read
+//     with streaming loads and the LCP written with streaming stores, so
+//     the streamed data does not evict the text;
+//   * samples go in runs of `chain` to a thread: the run's first walks
+//     the level rows, every later one starts from the Kasai bound of the
+//     one before and needs one or two probes (plcp_lane.cuh says when the
+//     chain's outcome is andix's and when a sample takes the walk).
 //
 // Four launches on one stream:
-//   1. w16: one thread a position packs sym[i..i+15] (coalesced reads).
-//   2. sample partners: one thread an SA slot t writes phi(SA[t]) =
-//      SA[t - 1] where SA[t] is a multiple of 16 (N / 16 scattered
-//      writes), so no inverse SA is built.
-//   3. samples: one thread a sample walks the level rows top-down, then
-//      probes words.  The rows are separate allocations (the doubling
-//      loop allocates one a level), read through a table of pointers.
+//   1. pack: one thread a word k packs sym[16 k .. 16 k + 15] (four
+//      16-byte loads) and, for the SA slots t = 16 k .. 16 k + 15, writes
+//      phi(SA[t]) = SA[t - 1] where SA[t] is a multiple of 16 (N / 16
+//      scattered writes), so no inverse SA is built;
+//   2. samples: one thread a run of `chain` samples, which settles all
+//      but the samples whose outcome needs andix's capped schedule;
+//   3. settle: one thread a sample runs that schedule for those (none
+//      where every level row is there);
 //   4. fill: one thread an SA slot t: position SA[t] and its partner
-//      SA[t - 1] come from two coalesced reads, the Kasai bound from the
-//      sample, one probe finishes most entries; lcp[t] is written in SA
-//      order, so PLCP is never stored and no final gather runs.
-//
-// What bounds it: bytes at best (the text, SA and LCP, 12 B a position,
-// and the level entries the samples' walks read), but the probes and the
-// walk are random 8- and 4-byte reads, one latency round each; the fill's
-// single probe pair per position is the bulk.  Speed work is for later.
+//      SA[t - 1] from streamed reads, the Kasai bound from the sample, one
+//      probe finishes most entries; lcp[t] is written in SA order, so PLCP
+//      is never stored and no final gather runs.
 
 #include <cuda_runtime.h>
 
@@ -34,27 +48,57 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void w16_kernel(const int32_t* __restrict__ sym, int64_t n,
-                           int64_t* __restrict__ w16) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) w16[i] = plcp_word(sym, n, i);
+__device__ __forceinline__ void load16(const int32_t* __restrict__ p,
+                                       int32_t* out) {
+  const int4* q = reinterpret_cast<const int4*>(p);
+  for (int c = 0; c < 4; ++c) {
+    const int4 x = __ldcs(q + c);
+    out[4 * c] = x.x;
+    out[4 * c + 1] = x.y;
+    out[4 * c + 2] = x.z;
+    out[4 * c + 3] = x.w;
+  }
 }
 
-__global__ void sample_phi_kernel(const int32_t* __restrict__ sa, int64_t n,
-                                  int32_t* __restrict__ sphi) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const int32_t i = sa[t];
-  if ((i & 15) == 0) sphi[i >> 4] = t > 0 ? sa[t - 1] : -1;
+__global__ void pack_kernel(const int32_t* __restrict__ sym,
+                            const int32_t* __restrict__ sa, int64_t nw,
+                            uint64_t* __restrict__ text,
+                            int32_t* __restrict__ sphi) {
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= nw + PLCP_TEXT_PAD) return;
+  if (k >= nw) {  // the words past the end
+    text[k] = 0;
+    return;
+  }
+  int32_t s[16];
+  load16(sym + 16 * k, s);
+  text[k] = plcp_pack16(s);
+  load16(sa + 16 * k, s);
+  int32_t prev = k > 0 ? __ldcs(sa + 16 * k - 1) : -1;
+  for (int c = 0; c < 16; ++c) {
+    if ((s[c] & 15) == 0) sphi[s[c] >> 4] = prev;
+    prev = s[c];
+  }
 }
 
 __global__ void samples_kernel(PlcpView v, const int32_t* __restrict__ sphi,
-                               int64_t ns, int32_t* __restrict__ S,
-                               int* __restrict__ counters) {
+                               int64_t ns, int chain, int tries,
+                               int32_t* __restrict__ S) {
+  const int64_t j0 =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * chain;
+  if (j0 < ns) plcp_run(v, sphi, j0, j0 + chain < ns ? j0 + chain : ns,
+                        tries, S);
+}
+
+__global__ void settle_kernel(PlcpView v, const int32_t* __restrict__ sphi,
+                              int64_t ns, int32_t* __restrict__ S,
+                              int* __restrict__ counters) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= ns) return;
-  bool open;
-  S[j] = plcp_sample(v, sphi[j], j, &open);
+  bool open = false, deferred = false;
+  if (j < ns) deferred = plcp_settle(v, sphi, j, S, &open);
+  // one atomic a warp for the deferred samples; opens are rare
+  const int n_def = __reduce_add_sync(0xffffffffu, (int)deferred);
+  if ((threadIdx.x & 31) == 0 && n_def) atomicAdd(&counters[2], n_def);
   if (open) atomicAdd(&counters[0], 1);
 }
 
@@ -64,8 +108,14 @@ __global__ void fill_kernel(PlcpView v, const int32_t* __restrict__ sa,
                             int32_t* __restrict__ lcp) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= v.n) return;
+  if (t == 0) {
+    __stcs(lcp, 0);
+    return;
+  }
   bool open;
-  lcp[t] = plcp_fill(v, sa, S, t, &open);
+  const int out =
+      plcp_fill(v, __ldcs(sa + t), __ldcs(sa + t - 1), S, &open);
+  __stcs(lcp + t, out);
   if (open) atomicAdd(&counters[1], 1);
 }
 
@@ -75,24 +125,30 @@ unsigned blocks_for(int64_t n) {
 
 }  // namespace
 
-// sym, sa int32 [n]; rows: a device table of L device pointers, each to
-// an int32 [n] level row; outputs: w16 int64 [n], sphi and S int32
-// [n / 16], counters int32 [2] (open samples, open survivors; zeroed by
-// the caller), lcp int32 [n].  n is a multiple of 16 and below 2^31.
+// sym, sa int32 [n], both 16-byte aligned; rows: a device table of L
+// device pointers, each to an int32 [n] level row; chain: samples a run
+// (1: every sample walks), tries: probes a sample of a run gets from its
+// bound, and after its walk (at most 64); outputs: text uint64 [n / 16 +
+// 2] (16-byte aligned), sphi and S int32 [n / 16], counters int32 [3]
+// (open samples, open survivors, samples deferred to the settle pass;
+// zeroed by the caller), lcp int32 [n].  n is a multiple of 16 and below
+// 2^31.
 extern "C" int andix_plcp_hybrid(const int32_t* sym, const int32_t* sa,
                                  const int32_t* const* rows, int L,
-                                 int lev_cnt,
-                                 int base, long long n, int64_t* w16,
+                                 int lev_cnt, int base, long long n,
+                                 int chain, int tries, uint64_t* text,
                                  int32_t* sphi, int32_t* S, int* counters,
                                  int32_t* lcp, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t ns = n / 16;
-  w16_kernel<<<blocks_for(n), kThreads, 0, s>>>(sym, n, w16);
-  sample_phi_kernel<<<blocks_for(n), kThreads, 0, s>>>(sa, n, sphi);
-  const PlcpView v{w16, rows, n, L, lev_cnt, base};
-  samples_kernel<<<blocks_for(ns), kThreads, 0, s>>>(v, sphi, ns, S,
-                                                       counters);
+  pack_kernel<<<blocks_for(ns + PLCP_TEXT_PAD), kThreads, 0, s>>>(
+      sym, sa, ns, text, sphi);
+  const PlcpView v{text, rows, n, L, lev_cnt, base};
+  samples_kernel<<<blocks_for((ns + chain - 1) / chain), kThreads, 0, s>>>(
+      v, sphi, ns, chain, tries, S);
+  settle_kernel<<<blocks_for(ns), kThreads, 0, s>>>(v, sphi, ns, S,
+                                                     counters);
   fill_kernel<<<blocks_for(n), kThreads, 0, s>>>(v, sa, S, counters, lcp);
   return (int)cudaGetLastError();
 }

@@ -36,6 +36,15 @@ the plain version ``plcp_lcp_hybrid_plain`` for a CPU tensor;
 ``plcp_lcp_hybrid_cpu_twin`` runs the kernels' bodies built with g++.
 Entries the caps leave open keep what ``andix``'s buffers hold for them
 (0 for a sample, the Kasai bound for a survivor).
+
+The kernels probe a 4-bit packed text (``pack_text_plain``: 16 codes to
+an int64 word, N / 16 + TEXT_PAD words) in place of ``w16``, and take the
+samples in runs of ``CHAIN``: a run's later samples start from the Kasai
+bound of the one before and walk the level rows only when ``TRIES``
+probes do not find a PLCP that ``andix``'s walk would close at its first
+probe; samples whose outcome needs ``andix``'s capped schedule go to a
+second pass (``plcp_lane.cuh`` gives the rules).  The outcome is
+``andix``'s, entry by entry, for any run length.
 """
 
 from __future__ import annotations
@@ -55,6 +64,11 @@ LADDER_PRE = 64  # word probes before the level walk (h grows by 1024)
 # walk granularity needs at most 4096 / 16 more probes
 PASS_CAP = LADDER_PRE + 4096 // 16 + 8
 _M7 = 0x7777777777777777
+# the kernels' sample runs: samples a thread, probes a chained sample gets
+# before it walks; the host twin also runs tiny ones
+CHAIN, TRIES = 16, 8
+TINY_CHAIN, TINY_TRIES = 2, 1
+TEXT_PAD = 2  # words of zeros past the packed text (PLCP_TEXT_PAD)
 
 
 def clz64(x: torch.Tensor) -> torch.Tensor:
@@ -86,15 +100,34 @@ def _word_m(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
     return torch.minimum(d, clz64(zn) >> 2).to(torch.int32)
 
 
-def _build_w16(sym: torch.Tensor) -> torch.Tensor:
-    """int64[N] packed words, w16[i] = codes of sym[i..i+15] big-endian."""
+def _codes(sym: torch.Tensor) -> torch.Tensor:
+    """int64[N] 4-bit class of each symbol (0: separator, padding)."""
     c = torch.zeros(sym.shape[0], dtype=torch.int64, device=sym.device)
     for byte, code in _CODES:
         c = torch.where(sym == byte, code, c)
+    return c
+
+
+def _build_w16(sym: torch.Tensor) -> torch.Tensor:
+    """int64[N] packed words, w16[i] = codes of sym[i..i+15] big-endian."""
+    c = _codes(sym)
     p = (c << 4) | shift_read(c, 1)
     p = (p << 8) | shift_read(p, 2)
     p = (p << 16) | shift_read(p, 4)
     return (p << 32) | shift_read(p, 8)
+
+
+def pack_text_plain(sym: torch.Tensor) -> torch.Tensor:
+    """The kernels' packed text: int64 [N / 16 + TEXT_PAD], word k the
+    codes of ``sym[16 k .. 16 k + 15]`` big-endian (``w16[16 k]``), then
+    TEXT_PAD words of zeros (a probe reads the word after its own; two
+    keep the length even)."""
+    n = sym.shape[0]
+    if n % 16:
+        raise ValueError(f"plcp: {n} symbols is not a multiple of 16")
+    shifts = torch.arange(60, -4, -4, dtype=torch.int64, device=sym.device)
+    words = (_codes(sym).view(-1, 16) << shifts).sum(dim=1)
+    return torch.cat([words, words.new_zeros(TEXT_PAD)])
 
 
 def _walk(levels, lev_cnt, base, a, b, h):
@@ -149,6 +182,10 @@ def _check(sym, sa, rows, device_type):
         if t.shape != (n,):
             raise ValueError(f"plcp: {name} must have shape [{n}], got "
                              f"{tuple(t.shape)}")
+    for name, t in (("sym", sym), ("sa", sa)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"plcp: {name} must start on a 16-byte "
+                             f"boundary")
 
 
 def _row_table(rows, device) -> torch.Tensor:
@@ -205,13 +242,22 @@ def plcp_lcp_hybrid_plain(sym: torch.Tensor, sa: torch.Tensor,
 
 
 def _outputs(n, device):
-    """The kernels' outputs: w16 int64[N], sample phi and PLCP int32[N/16],
-    the two counters (open samples, open survivors) and the LCP."""
-    return (torch.empty(n, dtype=torch.int64, device=device),
+    """The kernels' outputs: the packed text int64 [N/16 + TEXT_PAD],
+    sample phi and PLCP int32 [N/16], the counters (open samples, open
+    survivors, samples deferred to andix's schedule) and the LCP."""
+    return (torch.empty(n // 16 + TEXT_PAD, dtype=torch.int64,
+                        device=device),
             torch.empty(n // 16, dtype=torch.int32, device=device),
             torch.empty(n // 16, dtype=torch.int32, device=device),
-            torch.zeros(2, dtype=torch.int32, device=device),
+            torch.zeros(3, dtype=torch.int32, device=device),
             torch.empty(n, dtype=torch.int32, device=device))
+
+
+def _chain(rows, lev_cnt: int, base_width: int, chain: int) -> int:
+    """Samples a run: one where the top row may hold a wider width than
+    its own (``lev_cnt`` past the rows, an overflow of the SA loop) or the
+    walk leaves more than a probe closes (base above 16)."""
+    return chain if lev_cnt <= len(rows) and base_width <= 16 else 1
 
 
 def plcp_lcp_hybrid(sym: torch.Tensor, sa: torch.Tensor, levels,
@@ -226,31 +272,57 @@ def plcp_lcp_hybrid(sym: torch.Tensor, sa: torch.Tensor, levels,
     rows = list(levels)
     _check(sym, sa, rows, "cuda")
     n = sym.shape[0]
-    w16, sphi, S, counters, lcp = _outputs(n, sym.device)
+    text, sphi, S, counters, lcp = _outputs(n, sym.device)
     lib = kernels.cuda_lib()
     with kernels.launch_on(sym.device) as stream:
         table = _row_table(rows, sym.device)
         err = lib.andix_plcp_hybrid(
             sym.data_ptr(), sa.data_ptr(), table.data_ptr(), len(rows),
-            lev_cnt, base_width, ctypes.c_int64(n), w16.data_ptr(),
-            sphi.data_ptr(), S.data_ptr(), counters.data_ptr(),
-            lcp.data_ptr(), stream)
+            lev_cnt, base_width, ctypes.c_int64(n),
+            _chain(rows, lev_cnt, base_width, CHAIN), TRIES,
+            text.data_ptr(), sphi.data_ptr(), S.data_ptr(),
+            counters.data_ptr(), lcp.data_ptr(), stream)
     kernels.check(err, "plcp_lcp_hybrid")
     kernels.count_launch("plcp_lcp_hybrid", sym.device)
-    return lcp, counters.sum() > 0
+    return lcp, counters[:2].sum() > 0
 
 
 def plcp_lcp_hybrid_cpu_twin(sym: torch.Tensor, sa: torch.Tensor, levels,
-                             lev_cnt: int, base_width: int = 4):
+                             lev_cnt: int, base_width: int = 4,
+                             tiny: bool = False, runs=None):
     """The kernels' per-entry bodies (``plcp_lane.cuh``) built for the host
-    with g++ and run entry after entry: (lcp, overflow, counters)."""
+    with g++ and run entry after entry, with the kernels' sample runs,
+    (``tiny``) runs of 2 samples and 1 probe, or ``runs`` = (samples a
+    run, probes; at most LADDER_PRE): (lcp, overflow, counters)."""
     rows = list(levels)
     _check(sym, sa, rows, "cpu")
     n = sym.shape[0]
-    w16, sphi, S, counters, lcp = _outputs(n, sym.device)
+    text, sphi, S, counters, lcp = _outputs(n, sym.device)
     table = _row_table(rows, sym.device)
+    chain, tries = runs or ((TINY_CHAIN, TINY_TRIES) if tiny
+                            else (CHAIN, TRIES))
+    if not (chain >= 1 and 0 <= tries <= LADDER_PRE):
+        raise ValueError(f"plcp: runs of {chain} samples, {tries} probes")
     kernels.cpu_twin().andix_plcp_hybrid_cpu(
         sym.data_ptr(), sa.data_ptr(), table.data_ptr(), len(rows), lev_cnt,
-        base_width, ctypes.c_int64(n), w16.data_ptr(), sphi.data_ptr(),
-        S.data_ptr(), counters.data_ptr(), lcp.data_ptr())
-    return lcp, counters.sum() > 0, counters
+        base_width, ctypes.c_int64(n),
+        _chain(rows, lev_cnt, base_width, chain), tries, text.data_ptr(),
+        sphi.data_ptr(), S.data_ptr(), counters.data_ptr(), lcp.data_ptr())
+    return lcp, counters[:2].sum() > 0, counters
+
+
+def packed_reads_cpu_twin(sym: torch.Tensor):
+    """The kernels' pack body and probe read built with g++: (the packed
+    text int64 [N/16 + TEXT_PAD], the word a probe reads at every
+    position int64 [N], ``w16``'s)."""
+    n = sym.shape[0]
+    if n % 16 or sym.dtype != torch.int32 or not sym.is_contiguous():
+        raise ValueError("plcp: sym must be contiguous int32 [16 k]")
+    text = torch.empty(n // 16 + TEXT_PAD, dtype=torch.int64)
+    words = torch.empty(n, dtype=torch.int64)
+    lib = kernels.cpu_twin()
+    lib.andix_plcp_pack_cpu(sym.data_ptr(), None, ctypes.c_int64(n),
+                            text.data_ptr(), None)
+    lib.andix_plcp_read_cpu(text.data_ptr(), ctypes.c_int64(n),
+                            words.data_ptr())
+    return text, words

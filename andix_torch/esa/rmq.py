@@ -12,15 +12,22 @@ mins plus a full sparse table over group mins.  The JAX package's
 element-span rows (``tsm``) are left out: a same-fine-block query takes
 the masked 8-way min instead, which is the same number.
 
-``range_min`` here is the plain torch version; the walk kernel carries
-the same function as ``range_min`` in ``csrc/walk_lane.cuh``.
+``build`` launches the hand CUDA kernel (``csrc/rmq.cu``, tile bodies in
+``csrc/rmq_tile.cuh``) for a CUDA tensor and runs the plain version
+``build_plain`` for a CPU tensor; ``build_cpu_twin`` runs the kernel's
+tile bodies built with g++.  ``range_min`` here is the plain torch
+version; the walk kernel carries the same function as ``range_min`` in
+``csrc/walk_lane.cuh``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
+
+from .. import kernels
 
 INF = 2**31 - 1
 FINE = 8  # elements per fine block
@@ -50,11 +57,76 @@ def _cummin(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     return torch.cummin(x, dim=1).values
 
 
-def build(values: torch.Tensor) -> RangeMin:
+def _padded(values: torch.Tensor) -> torch.Tensor:
+    """int32 values padded with INF to a multiple of FINE * GROUP (the
+    same tensor when it is one already)."""
     v = values.to(torch.int32)
     pad = (-len(v)) % (FINE * GROUP)
     if pad:
         v = torch.cat([v, v.new_full((pad,), INF)])
+    return v
+
+
+def _tg_rows(ng: int) -> int:
+    """Rows of the sparse table over ``ng`` group mins: spans 1, 2, 4, ...
+    below ng, and the first."""
+    rows, span = 1, 1
+    while span < ng:
+        rows, span = rows + 1, span * 2
+    return rows
+
+
+def build(values: torch.Tensor) -> RangeMin:
+    """The range-min structure over ``values`` (int32 [N]).  A CUDA tensor
+    launches the kernel, a CPU tensor runs the plain version."""
+    if values.device.type == "cpu":
+        return build_plain(values)
+    v, out = _kernel_outputs(values)
+    if v.numel():
+        with kernels.launch_on(v.device) as stream:
+            err = kernels.cuda_lib().andix_range_min_build(
+                v.data_ptr(), ctypes.c_int64(v.numel()),
+                *(t.data_ptr() for t in out), out[-1].shape[0], stream)
+        kernels.check(err, "range_min_build")
+        kernels.count_launch("range_min_build", v.device)
+    return RangeMin(v, *out)
+
+
+def build_cpu_twin(values: torch.Tensor, tiny: bool = False) -> RangeMin:
+    """The kernel's tile bodies (``rmq_tile.cuh``) built for the host with
+    g++, at the kernel's tiles or (``tiny``) at tiles of 64 and 8 fine
+    blocks."""
+    if values.device.type != "cpu":
+        raise ValueError("rmq: the host twin takes a CPU tensor")
+    v, out = _kernel_outputs(values)
+    kernels.cpu_twin().andix_range_min_build_cpu(
+        v.data_ptr(), ctypes.c_int64(v.numel()),
+        *(t.data_ptr() for t in out), out[-1].shape[0], int(tiny))
+    return RangeMin(v, *out)
+
+
+def _kernel_outputs(values: torch.Tensor):
+    """The kernel's input, padded, contiguous and 16-byte aligned, and its
+    outputs (pref8, suff8, t8, prefg, suffg, tg), uninitialised."""
+    v = _padded(values.contiguous())
+    if v.data_ptr() % 16:
+        v = v.clone()
+    if v.numel() >= 1 << 31:
+        raise ValueError("rmq: more than 2^31 - 1 values")
+    np_, dev = v.numel(), v.device
+    nf = np_ // FINE
+    ng = nf // GROUP
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    return v, (empty(np_), empty(np_), empty(7, nf), empty(nf), empty(nf),
+               empty(_tg_rows(ng), ng))
+
+
+def build_plain(values: torch.Tensor) -> RangeMin:
+    """Plain PyTorch version of ``build``."""
+    v = _padded(values)
     nf = len(v) // FINE
     ng = nf // GROUP
 

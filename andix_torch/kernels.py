@@ -9,10 +9,10 @@ directory — nothing is compiled at import.  Editing any source or any
 header under ``csrc/`` rebuilds.
 
 ``cpu_twin()`` builds the kernels' shared bodies (``flag_scan_tile.cuh``,
-``walk_lane.cuh``, ``walk_sx_lane.cuh``, ``plcp_lane.cuh``) with g++ into
-a small host library, so the kernels' logic can be held to the JAX
-functions on a machine without a card (the scan and the walks each at the
-kernel's tile or window sizes and at tiny ones).
+``walk_lane.cuh``, ``walk_sx_lane.cuh``, ``plcp_lane.cuh``,
+``rmq_tile.cuh``) with g++ into a small host library, so the kernels'
+logic can be held to the JAX functions on a machine without a card (each
+at the kernel's tile, window or run sizes and at tiny ones).
 
 ``launches`` counts, per kernel wrapper, the calls that launched the
 kernel on the card (the plain versions never count); ``launches_by_card``
@@ -37,16 +37,17 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-CUDA_SOURCES = ("flag_scan.cu", "chain_walk.cu", "walk_sx.cu", "plcp.cu")
+CUDA_SOURCES = ("flag_scan.cu", "chain_walk.cu", "walk_sx.cu", "plcp.cu",
+                "rmq.cu")
 CPU_TWIN_SOURCES = ("flag_scan_cpu.cpp", "walk_cpu.cpp", "walk_sx_cpu.cpp",
-                    "plcp_cpu.cpp")
+                    "plcp_cpu.cpp", "rmq_cpu.cpp")
 CUDA_LIB = os.path.join(BUILD_DIR, "libandix_torch_cuda.so")
 CPU_TWIN_LIB = os.path.join(BUILD_DIR, "libandix_torch_walk_cpu.so")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 
 launches = {"flag_scan": 0, "chain_walk_flat": 0, "chain_walk_flat_sx": 0,
-            "plcp_lcp_hybrid": 0}
+            "plcp_lcp_hybrid": 0, "range_min_build": 0}
 launches_by_card: dict[int, dict[str, int]] = {}
 
 _cuda_lib = None
@@ -69,9 +70,12 @@ _WALK_ARGTYPES = ([_P, _P, ctypes.c_int64] + [_P] * 7 + [_I] * 3
 _SX_ARGTYPES = ([_P] * 5 + [ctypes.c_int64] * 3 + [_I] + [_P] * 9 + [_I] * 5
                 + [_P] * 10)
 # andix_plcp_hybrid's (plcp.cu): text, SA, the level rows' pointer table,
-# L, level count, base width, N, then the outputs; the CUDA entry adds the
-# stream
-_PLCP_ARGTYPES = [_P] * 3 + [_I] * 3 + [ctypes.c_int64] + [_P] * 5
+# L, level count, base width, N, the run length and tries, then the
+# outputs; the CUDA entry adds the stream
+_PLCP_ARGTYPES = [_P] * 3 + [_I] * 3 + [ctypes.c_int64] + [_I] * 2 + [_P] * 5
+# andix_range_min_build's (rmq.cu): values, Np, the six outputs, tg's rows;
+# the CUDA entry adds the stream, the host twin its tile-size switch
+_RMQ_ARGTYPES = [_P, ctypes.c_int64] + [_P] * 6 + [_I]
 
 
 def reset_launches() -> None:
@@ -197,6 +201,8 @@ def _load_cuda():
     lib.andix_chain_walk_sx.restype = _I
     lib.andix_plcp_hybrid.argtypes = _PLCP_ARGTYPES + [_P]
     lib.andix_plcp_hybrid.restype = _I
+    lib.andix_range_min_build.argtypes = _RMQ_ARGTYPES + [_P]
+    lib.andix_range_min_build.restype = _I
     lib.andix_set_device.argtypes = [_I]
     lib.andix_set_device.restype = _I
     lib.andix_cuda_error_string.argtypes = [_I]
@@ -240,4 +246,10 @@ def _load_cpu_twin():
     lib.andix_chain_walk_sx_cpu.restype = _I
     lib.andix_plcp_hybrid_cpu.argtypes = _PLCP_ARGTYPES
     lib.andix_plcp_hybrid_cpu.restype = _I
+    lib.andix_plcp_pack_cpu.argtypes = [_P, _P, ctypes.c_int64, _P, _P]
+    lib.andix_plcp_pack_cpu.restype = None
+    lib.andix_plcp_read_cpu.argtypes = [_P, ctypes.c_int64, _P]
+    lib.andix_plcp_read_cpu.restype = None
+    lib.andix_range_min_build_cpu.argtypes = _RMQ_ARGTYPES + [_I]
+    lib.andix_range_min_build_cpu.restype = _I
     return lib

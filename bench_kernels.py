@@ -1,9 +1,11 @@
-"""Time the flag scan and the search walk at the main paths' shapes on one
-CUDA card, with CUDA events, for this checkout or another one.
+"""Time the flag scan, the search walk, the sampled-PLCP LCP and the
+range-min build at the main paths' shapes on one CUDA card, with CUDA
+events, for this checkout or another one.
 
 Run from the repository root, on a machine with a card:
 
-    python3 bench_kernels.py [--tree DIR] [--reps 20] [--what all|scan|walk]
+    python3 bench_kernels.py [--tree DIR] [--reps 20]
+                             [--what all | a list of scan,walk,plcp,rmq]
 
 ``--tree DIR`` imports ``andix_torch`` from DIR, a checkout of another
 commit (for example one unpacked with ``git archive``), so two commits
@@ -11,8 +13,13 @@ can be timed in one call on one card, in turns.  The inputs are those of
 ``chip_smoke.py``: the flag scan over 10%-flagged random data at n = 2^24
 (the 8 x 1 Mbp joint block) and at the 8 x 5 Mbp joint block's padded
 length, forward; the search walk over the first segmented dispatch of
-the 8 x 1 and 8 x 5 Mbp subject-index runs.  Each kernel is run once
-before its timed launches.  Prints the card's name and power limit
+the 8 x 1 and 8 x 5 Mbp subject-index runs; ``plcp_lcp_hybrid`` over
+the padded joint texts of 8 x 1 and 8 x 5 Mbp and of the 8 x 1 Mbp
+clonal family, with every level row and cut to 14 rows; ``rmq.build``
+over the 8 x 1 and 8 x 5 Mbp joint LCPs (in a tree from before the
+range-min kernel, that is the torch build).  Each kernel is run once
+before its timed launches.  ``--split`` also prints the device time of
+each launch of one PLCP call, from torch.profiler.  Prints the card's name and power limit
 first, one line per measurement, and one JSON object last; exits
 non-zero without a card.
 """
@@ -46,8 +53,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--what", choices=("all", "scan", "walk"), default="all")
+    ap.add_argument("--split", action="store_true",
+                    help="also trace one PLCP call with torch.profiler and "
+                    "print each of its launches' device time")
+    ap.add_argument("--what", default="all",
+                    help="all, or a comma-separated list of scan, walk, "
+                    "plcp, rmq")
     args = ap.parse_args(argv)
+    what = set(args.what.split(","))
+    if not what <= {"all", "scan", "walk", "plcp", "rmq"}:
+        ap.error(f"--what {args.what}")
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
         return 2
@@ -75,7 +90,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(7)
     scan_sizes = (("2^24", 1 << 24),
                   ("8x5Mbp joint", bucket(8 * (2 * 5_000_000 + 2))))
-    for label, n in scan_sizes if args.what != "walk" else ():
+    def wants(name):
+        return bool(what & {"all", name})
+
+    for label, n in scan_sizes if wants("scan") else ():
         v = torch.from_numpy(rng.integers(0, 100, n).astype(np.int32)).to(dev)
         f = torch.from_numpy(rng.random(n) < 0.1).to(dev)
         p = torch.from_numpy(rng.integers(0, n, n).astype(np.int32)).to(dev)
@@ -87,7 +105,7 @@ def main(argv=None) -> int:
         del v, f, p
         torch.cuda.empty_cache()
 
-    for length in (1_000_000, 5_000_000) if args.what != "scan" else ():
+    for length in (1_000_000, 5_000_000) if wants("walk") else ():
         index, lanes, cache_k, ecap, k = cs._sx_walk_setup(dev, 8, length,
                                                            2026)
         from andix_torch.chain import walk_sx
@@ -101,8 +119,72 @@ def main(argv=None) -> int:
         out[f"chain_walk_flat_sx_ms {label}"] = ms
         del index, lanes
         torch.cuda.empty_cache()
+
+    if wants("plcp") or wants("rmq"):
+        out.update(_plcp_rmq(cs, dev, args.reps, wants("plcp"),
+                             wants("rmq"), args.split))
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _device_split(fn):
+    """{kernel name: device ms} of one call of ``fn`` under
+    torch.profiler (after a warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].strip().split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / 1e3
+    return out
+
+
+def _plcp_rmq(cs, dev, reps, do_plcp, do_rmq, split=False):
+    """The sampled-PLCP LCP and the range-min build, timed over the joint
+    texts of ``chip_smoke.phase_plcp``; with ``split``, the PLCP call's
+    device time by launch."""
+    from andix_torch.esa import plcp, rmq
+
+    out = {}
+    for label, fam, cap in (
+            ("8x1Mbp", cs.make_family(8, 1_000_000), None),
+            ("8x5Mbp", cs.make_family(8, 5_000_000), None),
+            ("8x1Mbp clonal", cs.clonal(cs.make_family(8, 1_000_000)), None),
+            ("8x1Mbp clonal, 14 rows",
+             cs.clonal(cs.make_family(8, 1_000_000)), 14)):
+        if cap is not None and not do_plcp:
+            continue
+        sym, sa, levels, cnt, _, base, _ = cs._joint_text(dev, fam, cap)
+        args = (sym, sa, levels, cnt, base)
+        lcp = plcp.plcp_lcp_hybrid(*args)[0]
+        if do_plcp:
+            ms = cs.cuda_ms(lambda: plcp.plcp_lcp_hybrid(*args), reps // 4
+                            or 1)
+            print(f"plcp_lcp_hybrid {label} (n={sym.shape[0]}, "
+                  f"{len(levels)} rows): {ms:.4f} ms", flush=True)
+            out[f"plcp_lcp_hybrid_ms {label}"] = ms
+            if split:
+                parts = _device_split(lambda: plcp.plcp_lcp_hybrid(*args))
+                print(f"  device ms by launch: {json.dumps(parts)}",
+                      flush=True)
+        if do_rmq and "clonal" not in label:
+            ms = cs.cuda_ms(lambda: rmq.build(lcp), reps)
+            print(f"rmq.build {label} (n={lcp.shape[0]}): {ms:.4f} ms",
+                  flush=True)
+            out[f"rmq_build_ms {label}"] = ms
+        del sym, sa, levels, args, lcp
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -20,9 +20,10 @@ line each; any failed phase raises and the script exits non-zero:
    joint texts of 8 x 1 Mbp (2^24) and 8 x 5 Mbp (100,663,296) and of the
    8 x 1 Mbp clonal family (g1 = g0) with every level row it needs (its
    LCP also equal to the host Φ LCP) and cut to andix's 14 rows (entries
-   left open, the overflow flag up), LCP and overflow flag; print the
-   times, the walks' counts and each kernel's byte bound from the data of
-   its run;
+   left open, the overflow flag up), LCP and overflow flag; the
+   range-min build over the 8 x 1 and 8 x 5 Mbp joint LCPs, every array
+   it makes; print the times, the walks' counts and each kernel's byte
+   bound from the data of its run;
 4. one 1 Mbp subject's index built (hybrid: wide ranks, sampled-PLCP
    LCP) on the card and on the CPU: SA, LCP, words and cache equal; the
    build's levels and peak bytes per padded index symbol at 1 Mbp and
@@ -81,8 +82,9 @@ for the walks, what this run's data needs, counted as set out at
 and the scan do a few integer operations per byte, so bytes bound them.
 The sampled-PLCP LCP's bytes are the text and SA read and the LCP
 written, 12 B a position, and the level entries the samples' walks read,
-8 B a sample and row.  No single PyTorch call computes any of the four
-functions, so ``library_ms`` is null.
+8 B a sample and row.  The range-min build's are the values read and its
+arrays written once (``rmq_bound``).  No single PyTorch call computes any
+of the five functions, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -548,11 +550,12 @@ def phase_plcp(dev):
     LCP must also equal the host Φ LCP; then on the clonal family cut to
     andix's 14 rows, where entries stay open and the flag rises; timed on
     each.  Returns (kernel ms, plain ms, max_abs_err, bound ms) at
-    8 x 1 Mbp."""
+    8 x 1 Mbp, and the kernel's LCPs of the 8 x 1 and 8 x 5 Mbp texts."""
     from andix_torch import native
     from andix_torch.esa import plcp
 
     timing = None
+    lcps = {}
     for label, fam, cap in (
             ("8x1Mbp", make_family(8, 1_000_000), None),
             ("8x5Mbp", make_family(8, 5_000_000), None),
@@ -583,6 +586,8 @@ def phase_plcp(dev):
             f"= {100 * bound_ms / ms:.2f}% of the kernel")
         if label == "8x1Mbp":
             timing = (ms, plain_ms, err, bound_ms)
+        if cap is None and "clonal" not in label:
+            lcps[label] = got[0]
         if label == "8x1Mbp clonal":
             host = native.lcp_from_sa(sym.cpu().numpy(), sa.cpu().numpy(),
                                       os.cpu_count() or 1)
@@ -593,6 +598,48 @@ def phase_plcp(dev):
             say(f"  {label}: kernel LCP == host Φ LCP over the {n_real} "
                 f"real positions (longest {int(lcp.max())})")
         del sym, sa, levels, got, ref, args
+        torch.cuda.empty_cache()
+    return timing, lcps
+
+
+def rmq_bound(rm) -> tuple[int, float]:
+    """Bytes the range-min build must move: the Np values read, and
+    pref8, suff8 (Np each), t8 (7 nf), prefg, suffg (nf each) and tg
+    written, 4 B an entry; and their time at the card's memory rate."""
+    nbytes = 4 * (rm.values.numel() + rm.pref8.numel() + rm.suff8.numel()
+                  + rm.t8.numel() + rm.prefg.numel() + rm.suffg.numel()
+                  + rm.tg.numel())
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_rmq(lcps):
+    """The range-min kernel against its plain build over the 8 x 1 and
+    8 x 5 Mbp joint LCPs (``phase_plcp``'s), every array exactly; both
+    timed, the bound printed.  Returns (kernel ms, plain ms, max_abs_err,
+    bound ms) at 8 x 1 Mbp."""
+    from andix_torch.esa import rmq
+
+    timing = None
+    for label, lcp in lcps.items():
+        got = rmq.build(lcp)
+        ref = rmq.build_plain(lcp)
+        torch.cuda.synchronize()
+        names = ("values", "pref8", "suff8", "t8", "prefg", "suffg", "tg")
+        err = max_abs_err([getattr(got, k) for k in names],
+                          [getattr(ref, k) for k in names])
+        if err:
+            raise AssertionError(f"range_min_build {label}: max_abs_err "
+                                 f"{err}")
+        ms = cuda_ms(lambda: rmq.build(lcp), 20)
+        plain_ms = cuda_ms(lambda: rmq.build_plain(lcp), 3)
+        nbytes, bound_ms = rmq_bound(got)
+        say(f"range_min_build {label} (Np={got.values.numel()}, tg "
+            f"{tuple(got.tg.shape)}): kernel == plain, every array; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({nbytes} B) = {100 * bound_ms / ms:.2f}% of the kernel")
+        if label == "8x1Mbp":
+            timing = (ms, plain_ms, err, bound_ms)
+        del got, ref
         torch.cuda.empty_cache()
     return timing
 
@@ -788,9 +835,28 @@ def _cli_run(paths, index, tmp, label):
         say(f"  phase {p}")
     say(f"  peak device memory {peak} B")
     say(f"  kernel launches {launches}")
+    sa_lines = [p for p in phases if "SA doubling (" in p]
+    h2d = [p for p in phases if "H2D text (" in p]
+    if sa_lines and h2d:
+        rows = int(sa_lines[0].split("SA doubling (")[1].split(" levels")[0])
+        padded = int(h2d[0].split("H2D text (")[1].split(" padded")[0])
+        seconds = float(sa_lines[0].rsplit(": ", 1)[1].rstrip("s"))
+        nbytes, bound_ms = sa_bound(padded, rows)
+        say(f"  SA loop bound ({padded} positions, {rows} rows): {nbytes} B "
+            f"-> {bound_ms:.4f} ms = {bound_ms / 10 / seconds:.3f}% of the "
+            f"SA doubling phase (a sort's passes not counted)")
     if code != 0:
         raise AssertionError(f"{label}: exit code {code}")
     return out, launches, peak, wall, phases
+
+
+def sa_bound(padded: int, rows: int) -> tuple[int, float]:
+    """Bytes the doubling loop must move, and their time at the card's
+    memory rate: the text read once and the SA and each level row written
+    once, 4 B a position each.  The passes of its sorts are not counted:
+    their number is the sort's choice."""
+    nbytes = (8 + 4 * rows) * padded
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def _check_matrix(out, n_genomes, rates=None):
@@ -824,8 +890,8 @@ def phase_main_path(tmp, card):
     say(f"  {peak / padded:.2f} B per padded symbol ({padded} padded "
         f"symbols)")
     if min(launches["flag_scan"], launches["chain_walk_flat"],
-           launches["plcp_lcp_hybrid"]) <= 0 or \
-            launches["chain_walk_flat_sx"]:
+           launches["plcp_lcp_hybrid"], launches["range_min_build"]) <= 0 \
+            or launches["chain_walk_flat_sx"]:
         raise AssertionError(f"the joint path's kernels did not launch: "
                              f"{launches}")
     _check_matrix(out, 8)
@@ -1193,7 +1259,10 @@ def main() -> int:
     fs_t = phase_flag_scan(dev)
     walk_t = phase_walk(dev)
     sx_t = phase_walk_sx(dev)
-    plcp_t = phase_plcp(dev)
+    plcp_t, lcps = phase_plcp(dev)
+    rmq_t = phase_rmq(lcps)
+    del lcps
+    torch.cuda.empty_cache()
     phase_index_build(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli_parity(tmp)
@@ -1229,6 +1298,12 @@ def main() -> int:
          "replaces": "andix/esa/plcp.py:267",
          "launches": launches["plcp_lcp_hybrid"], "max_abs_err": plcp_t[2],
          "ms": plcp_t[0], "plain_ms": plcp_t[1], "bound_ms": plcp_t[3],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "range_min_build", "route": "cuda",
+         "source": "andix_torch/csrc/rmq.cu",
+         "replaces": "andix/esa/rmq.py:67",
+         "launches": launches["range_min_build"], "max_abs_err": rmq_t[2],
+         "ms": rmq_t[0], "plain_ms": rmq_t[1], "bound_ms": rmq_t[3],
          "bound_by": "bytes", "library_ms": None},
     ]}
     say(f"chip_smoke: {time.time() - t_start:.1f} s")

@@ -16,7 +16,7 @@ import torch
 from andix_torch import kernels, subject_pipeline
 from andix_torch.chain import replay_device as rd
 from andix_torch.chain import segmented, walk_sx
-from andix_torch.esa import doubling, joint, plcp, scans, subject_index
+from andix_torch.esa import doubling, joint, plcp, rmq, scans, subject_index
 from andix_torch.esa.backend import TorchBackend, pad_symbols
 from andix_torch.sequence import Seq, subject_init
 
@@ -303,6 +303,100 @@ def test_plcp_kernel_equals_plain(cuda, clonal, rows):
     assert bool(got[1]) == bool(ref[1]) == (clonal and rows != "all")
 
 
+def _clonal_block(device, length, seed=17):
+    """Two identical genomes of ``length`` bp as one joint block on
+    ``device``: (sym, base width)."""
+    rng = np.random.default_rng(seed)
+    data = NUCL[rng.integers(0, 4, length)]
+    subjects = [subject_init(Seq(data.copy(), f"g{i}"), 0.025)
+                for i in range(2)]
+    layout = joint.build_block({i: s.rs for i, s in enumerate(subjects)},
+                               {})
+    padded = -(-layout.n // 1024) * 1024
+    sym = torch.from_numpy(pad_symbols(layout.sym, padded)).to(device)
+    return sym, doubling.wide_base_width(2, True)
+
+
+@pytest.mark.parametrize("rows", [0, 1, 14, "all"])
+def test_plcp_kernel_with_rows_cut(cuda, rows):
+    """A clonal pair of 120 kbp (adjacent LCPs of 240 kbp, 15 level rows
+    from width 12) with 0, 1, 14 and every row: the kernels == the plain
+    version, LCP and flag; entries stay open exactly when rows are cut."""
+    sym, base = _clonal_block(cuda, 120_000)
+    L = doubling.levels_needed(sym.shape[0], True, base)
+    sa, levels, cnt, ovf = doubling.sa_loop(sym, True, L, base)
+    assert not ovf and cnt > 14
+    k = cnt if rows == "all" else rows
+    lev = levels[: max(k, 1)]
+    before = kernels.launches["plcp_lcp_hybrid"]
+    got = plcp.plcp_lcp_hybrid(sym, sa, lev, k, base)
+    assert kernels.launches["plcp_lcp_hybrid"] == before + 1
+    ref = plcp.plcp_lcp_hybrid_plain(sym, sa, lev, k, base)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    assert bool(got[1]) == bool(ref[1]) == (rows != "all")
+
+
+@pytest.mark.parametrize("n", [1 << 20, (1 << 24) + 512])
+def test_plcp_kernel_large(cuda, n):
+    """A random 2-genome block text padded to n: the kernels == the plain
+    version, with every level row, at the 8 x 1 Mbp block's size and
+    past it."""
+    rng = np.random.default_rng(n)
+    half = (n - 64) // 4
+    subjects = [subject_init(Seq(NUCL[rng.integers(0, 4, half)], f"g{i}"),
+                             0.025) for i in range(2)]
+    layout = joint.build_block({i: s.rs for i, s in enumerate(subjects)},
+                               {})
+    sym = torch.from_numpy(pad_symbols(layout.sym, n)).to(cuda)
+    base = doubling.wide_base_width(2, True)
+    L = doubling.levels_needed(n, True, base)
+    sa, levels, cnt, _ = doubling.sa_loop(sym, True, L, base)
+    got = plcp.plcp_lcp_hybrid(sym, sa, levels, cnt, base)
+    ref = plcp.plcp_lcp_hybrid_plain(sym, sa, levels, cnt, base)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and not bool(got[1])
+    assert not bool(ref[1])
+
+
+@pytest.mark.parametrize("n", [1, 7, 512, 513, 4097, 70000, 1 << 20,
+                               (1 << 24) + 512])
+def test_range_min_kernel_equals_plain(cuda, n):
+    """The range-min kernel's arrays == the plain build's, every one, on
+    values with runs of INF and of one value; one launch counted."""
+    rng = np.random.default_rng(n)
+    vals = rng.integers(0, 1000, n).astype(np.int32)
+    for start in rng.integers(0, n, 8):
+        vals[start: start + int(rng.integers(1, 2000))] = 2**31 - 1
+    for start in rng.integers(0, n, 8):
+        vals[start: start + int(rng.integers(1, 2000))] = 5
+    v = torch.from_numpy(vals).to(cuda)
+    before = kernels.launches["range_min_build"]
+    got = rmq.build(v)
+    assert kernels.launches["range_min_build"] == before + 1
+    ref = rmq.build_plain(v)
+    torch.cuda.synchronize()
+    for name in ("values", "pref8", "suff8", "t8", "prefg", "suffg", "tg"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert a.device == v.device and torch.equal(a, b), name
+
+
+def test_range_min_kernel_twice_on_one_stream(cuda):
+    """Two builds in a row on one stream without a synchronize, the
+    second over a view that starts off a 16-byte boundary (the wrapper
+    copies it): both == the plain build."""
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.integers(0, 50, 70001).astype(np.int32)).to(
+        cuda)
+    b = a[1:]
+    got = [rmq.build(a), rmq.build(b)]
+    for g, x in zip(got, (a, b)):
+        ref = rmq.build_plain(x.contiguous())
+        for name in ("values", "pref8", "suff8", "t8", "prefg", "suffg",
+                     "tg"):
+            assert torch.equal(getattr(g, name), getattr(ref, name)), name
+
+
 def test_plcp_kernel_keeps_every_row(cuda):
     """Two identical 60 kbp genomes: with the level rows the text needs,
     more than andix's 14-row hybrid cap, the card's build takes its LCP
@@ -358,6 +452,9 @@ def test_wrappers_refuse_bad_inputs(cuda):
                 (z, z[:16], z.view(2, 16))):
         with pytest.raises(ValueError):
             plcp.plcp_lcp_hybrid(*bad, 1, 4)
+    off = torch.zeros(33, dtype=torch.int32, device=cuda)[1:]  # 4 B off 16
+    with pytest.raises(ValueError):
+        plcp.plcp_lcp_hybrid(off, z, z.view(1, 32), 1, 4)
     index, lanes = _sx_group(cuda, 1, 2)
     for bad in (dict(lanes, row=lanes["row"].cpu()),
                 dict(lanes, pos0=lanes["pos0"][:1])):
@@ -432,7 +529,8 @@ def test_wrappers_launch_on_the_workers_card(cuda):
                                             1 << 28, 8, 1 << 15)
         after = dict(kernels.launches_by_card[d])
         assert all(after[name] == before.get(name, 0) + 1
-                   for name in kernels.launches), (before, after)
+                   for name in ("flag_scan", "chain_walk_flat",
+                                "chain_walk_flat_sx")), (before, after)
         ref = scans.flag_scan(*(x.cpu() for x in scan_in))
         for a, b in zip(got_scan, ref):
             assert a.device == dev and torch.equal(a.cpu(), b)

@@ -100,6 +100,37 @@ def test_range_min_equals_jax_and_brute(rng, n):
     assert (got == brute).all()
 
 
+RM_ARRAYS = ("values", "pref8", "suff8", "t8", "prefg", "suffg", "tg")
+
+
+@pytest.mark.parametrize("kind", ["runs", "constant"])
+@pytest.mark.parametrize("n", [1, 7, 9, 513, 3000, 70000, 2**17 + 5])
+def test_range_min_build_equals_andix(rng, n, kind):
+    """``build_plain`` and the range-min kernel's host twin (at the
+    kernel's tiles and at tiny ones, where the t8 windows cross many
+    tiles) give every array ``andix``'s build gives that the port keeps:
+    on values with runs of INF and of one value, and on all-equal
+    values."""
+    if kind == "runs":
+        vals = rng.integers(0, 1000, n).astype(np.int32)
+        for start in rng.integers(0, n, 6):
+            vals[start: start + int(rng.integers(1, 700))] = 2**31 - 1
+        for start in rng.integers(0, n, 6):
+            vals[start: start + int(rng.integers(1, 700))] = 17
+    else:
+        vals = np.full(n, 42, np.int32)
+    ref = jrmq.build(jnp.asarray(vals))
+    t = torch.from_numpy(vals)
+    for label, got in (("plain", rmq.build_plain(t)),
+                       ("twin", rmq.build_cpu_twin(t)),
+                       ("tiny twin", rmq.build_cpu_twin(t, tiny=True))):
+        for name in RM_ARRAYS:
+            a = getattr(got, name).numpy()
+            b = np.asarray(getattr(ref, name))
+            assert a.shape == b.shape and (a == b).all(), (label, name)
+    assert rmq.build(t).tg.shape == tuple(ref.tg.shape)  # CPU: plain
+
+
 def test_ilog2_exact():
     x = torch.tensor([0, 1, 2, 3, 4, 7, 8, 2**24 - 1, 2**24, 2**24 + 1,
                       2**31 - 1], dtype=torch.int64)

@@ -5,8 +5,10 @@ level count and level rows (``sa_loop`` against ``_sa_core``), with the
 full level buffer and with one cut short; the sampled-PLCP LCP
 (``plcp_lcp_hybrid``: the plain version and the kernels' host twin)
 against ``andix.esa.plcp.plcp_lcp_hybrid`` with every level row and with
-fewer, where entries stay open and the flag rises; and the pieces
-``wide_base_width``, ``clz64``, ``_word_m`` and ``_build_w16``.
+fewer, where entries stay open and the flag rises, the twin at the
+kernels' sample runs and at tiny ones; and the pieces
+``wide_base_width``, ``clz64``, ``_word_m``, ``_build_w16`` and the
+kernels' packed text.
 
 The cases are those of tests/test_backend_jax.py's SA/LCP tests: two
 genomes at 0, 0.004, 0.05 and 0.3 divergence, three at 0.005 and 0.2,
@@ -154,13 +156,9 @@ def test_deep_repeats_keep_every_level_row():
     assert torch.equal(t_lcp, lcp) and not bool(t_ovf)
 
 
-@pytest.mark.parametrize("rows", ["all", 3, 1, 0])
-@pytest.mark.parametrize("name", list(FAMILIES))
-def test_plcp_equals_andix_and_twin(blocks, name, rows):
-    """The sampled-PLCP LCP from the full level stack and from a cut one
-    (the top rows missing): plain == andix (LCP and flag), and the
-    kernels' host twin == plain."""
-    n_real, sym_d, nseg = blocks[name]
+def _sa_and_levels(sym_d, nseg):
+    """andix's SA, level buffer and level count of a block text, and the
+    base width."""
     base = jdoubling.wide_base_width(nseg, True)
     L = jdoubling.levels_needed(sym_d.shape[0], True, base)
     thr0 = int(sym_d.shape[0] * jdoubling._BUCKET_FRAC)
@@ -168,7 +166,15 @@ def test_plcp_equals_andix_and_twin(blocks, name, rows):
         sym_d, packed=True, L=L, thr0=thr0,
         tiers=jdoubling._tail_tiers(sym_d.shape[0], thr0), base=base)
     assert not bool(ovf)
-    k = int(cnt) if rows == "all" else min(rows, int(cnt))
+    return sa_d, lev_d, int(cnt), base
+
+
+def _plcp_three_ways(sym_d, sa_d, lev_d, cnt, base, rows):
+    """andix's, the plain version's and the host twin's (the kernels' run
+    sizes and tiny ones) LCP and flag, with ``rows`` level rows ("all":
+    every one the text needs): all equal.  Returns the plain LCP, flag and
+    the twins' counters."""
+    k = cnt if rows == "all" else min(rows, cnt)
     lev = np.array(lev_d)[: max(k, 1)]
     j_lcp, j_ovf = jplcp.plcp_lcp_hybrid(sym_d, sa_d, jnp.asarray(lev),
                                          jnp.int32(k), base_width=base)
@@ -179,12 +185,111 @@ def test_plcp_equals_andix_and_twin(blocks, name, rows):
     # every survivor fits andix's fill buffer here, so even the open
     # entries hold what andix's buffers do
     assert (lcp.numpy() == np.asarray(j_lcp)).all()
-    t_lcp, t_ovf, counters = plcp.plcp_lcp_hybrid_cpu_twin(*args)
-    assert torch.equal(t_lcp, lcp) and bool(t_ovf) == bool(p_ovf)
-    if rows == "all":
-        assert not bool(p_ovf) and counters[0] == counters[1] == 0
+    counters = []
+    for tiny in (False, True):
+        t_lcp, t_ovf, c = plcp.plcp_lcp_hybrid_cpu_twin(*args, tiny=tiny)
+        assert torch.equal(t_lcp, lcp) and bool(t_ovf) == bool(p_ovf), tiny
+        counters.append(c)
+    # the open entries are andix's, entry by entry, whatever the run length
+    assert torch.equal(counters[0][:2], counters[1][:2])
+    return lcp, p_ovf, counters
+
+
+@pytest.mark.parametrize("rows", ["all", 3, 1, 0])
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_plcp_equals_andix_and_twin(blocks, name, rows):
+    """The sampled-PLCP LCP from the full level stack and from a cut one
+    (the top rows missing): plain == andix (LCP and flag), and the
+    kernels' host twin == plain, with the kernels' sample runs and with
+    tiny ones.  With every row no sample goes to the settle pass."""
+    n_real, sym_d, nseg = blocks[name]
+    sa_d, lev_d, cnt, base = _sa_and_levels(sym_d, nseg)
+    _, p_ovf, (counters, _) = _plcp_three_ways(sym_d, sa_d, lev_d, cnt,
+                                               base, rows)
+    if rows == "all":  # nothing open, no sample deferred
+        assert not bool(p_ovf) and counters.tolist() == [0, 0, 0]
     if name == "identical" and rows in (1, 0):
         assert bool(p_ovf) and counters[0] > 0  # samples left open
+
+
+def _chain_texts():
+    """Three block texts for the sample runs: a 400 bp repeat that starts
+    inside a run, so a sample of the run after a short PLCP (its bound 0)
+    needs more probes than it gets and walks; a family whose separators
+    fall inside runs; and a genome whose samples at x, x + 16, ...,
+    x + 80 (one run of 8) have PLCPs 1000, 2000, ..., 6000 (a copy of the
+    text from each, that many symbols long, before it in suffix order),
+    so that runs of 8 samples with 64 probes find each from the one
+    before, though andix's schedule leaves the last open with no level
+    row (past its 328 probes)."""
+    rng = np.random.default_rng(404)
+    g = _dna(rng, 4000)
+    g[2003:2403] = g[500:900]
+    rep = {0: catcomp(g), 1: catcomp(_mutate(rng, g, 0.1))}
+    sep = {i: catcomp(_dna(rng, 413 + 77 * i)) for i in range(3)}
+    n, b = 56000, 3000
+    g = _dna(rng, n)
+    for k in range(6):  # the copies end on "A" where x's text has "T"
+        g[b + 16 * k + 1000 * (k + 1)] = ord("T")
+    for k in range(6):
+        c, m = 10_000 + 7000 * k, 1000 * (k + 1)
+        g[c: c + m], g[c + m] = g[b + 16 * k: b + 16 * k + m], ord("A")
+    # x at text offset len(g) + 1 + b: a run's second sample for runs of 8
+    tail = (128 + 16 - (n + 1 + b) % 128) % 128
+    g = np.concatenate([g, _dna(rng, tail)])
+    return {"repeat_in_run": rep, "runs_across_separators": sep,
+            "rising_repeats": {0: catcomp(g)}}
+
+
+CHAIN_TEXTS = _chain_texts()
+
+
+@pytest.mark.parametrize("rows", ["all", 1, 0])
+@pytest.mark.parametrize("name", list(CHAIN_TEXTS))
+def test_plcp_sample_runs_equal_andix(name, rows):
+    """The twin's sample runs on the texts of ``_chain_texts`` (each shown
+    to hold its case at the run sizes it names): LCP, flag and open
+    entries equal to andix's and to the plain version's; on the rising
+    repeats also with runs of 8 samples and 64 probes, where a run finds
+    PLCPs that andix's schedule leaves open, and must defer them."""
+    layout = jjoint.build_block(CHAIN_TEXTS[name], {})
+    sym_d = device_text(layout, bucket(layout.n))
+    sa_d, lev_d, cnt, base = _sa_and_levels(sym_d, len(layout.genome_ids))
+    lcp, ovf, counters = _plcp_three_ways(sym_d, sa_d, lev_d, cnt, base,
+                                          rows)
+    exact = _plcp_three_ways(sym_d, sa_d, lev_d, cnt, base, "all")[0]
+    sym = np.asarray(sym_d)
+    plcp_arr = np.zeros(len(sym), np.int64)
+    plcp_arr[np.asarray(sa_d)] = exact.numpy()
+    S = plcp_arr[::16]
+    j = np.arange(1, len(S))
+    for chain, tries in ((plcp.CHAIN, plcp.TRIES),
+                         (plcp.TINY_CHAIN, plcp.TINY_TRIES)):
+        inside = j % chain != 0
+        bound = np.maximum(S[:-1] - 16, 0)
+        if name == "repeat_in_run":
+            walks = inside & (bound == 0) & (S[1:] >= 16 * tries)
+            assert walks.any(), chain
+        elif name == "runs_across_separators":
+            special = ~np.isin(sym[: layout.n], [65, 67, 71, 84, 33, 35,
+                                                   59])
+            pos = np.flatnonzero(special)
+            run = 16 * chain  # samples at run starts + 0, 16, ...
+            assert ((pos % run >= 1) & (pos % run < run - 16)).any(), chain
+    if name == "rising_repeats":
+        x = np.flatnonzero(S == 1000)
+        x = [i for i in x if (S[i: i + 6] == np.arange(1, 7) * 1000).all()]
+        assert len(x) == 1 and x[0] % 8 == 1
+        args = (torch.from_numpy(np.array(sym_d)),
+                torch.from_numpy(np.array(sa_d)),
+                torch.from_numpy(np.array(lev_d)[: max(
+                    cnt if rows == "all" else rows, 1)]),
+                cnt if rows == "all" else rows, base)
+        t_lcp, t_ovf, c = plcp.plcp_lcp_hybrid_cpu_twin(*args,
+                                                        runs=(8, 64))
+        assert torch.equal(t_lcp, lcp) and bool(t_ovf) == bool(ovf)
+        assert torch.equal(c[:2], counters[0][:2])
+        assert bool(ovf) == (rows != "all")
 
 
 def test_wide_base_width_equals_andix():
@@ -234,3 +339,19 @@ def test_w16_equals_andix(blocks):
     for name, (_, sym_d, _) in blocks.items():
         got = plcp._build_w16(torch.from_numpy(np.array(sym_d))).numpy()
         assert (got == np.asarray(jplcp._build_w16(sym_d))).all(), name
+
+
+def test_packed_text_equals_andix(blocks):
+    """The kernels' packed text (plain and the twin's pack body) holds
+    ``w16`` at every 16th position and words of zeros past the end, and
+    the twin's probe read gives ``w16`` at every position."""
+    for name, (_, sym_d, _) in blocks.items():
+        sym = torch.from_numpy(np.array(sym_d))
+        w16 = np.asarray(jplcp._build_w16(sym_d))
+        text, words = plcp.packed_reads_cpu_twin(sym)
+        plain = plcp.pack_text_plain(sym)
+        assert torch.equal(text, plain), name
+        pad = plcp.TEXT_PAD
+        assert (text.numpy()[:-pad] == w16[::16]).all()
+        assert (text[-pad:] == 0).all()
+        assert (words.numpy() == w16).all(), name

@@ -32,7 +32,9 @@ import torch
 import chip_smoke
 
 OURS = ("chain_walk_flat_kernel", "walk_sx", "flag_scan", "finals_kernel",
-        "prefix_kernel", "seeded_kernel")
+        "prefix_kernel", "seeded_kernel", "pack_kernel", "samples_kernel",
+        "settle_kernel", "fill_kernel", "fine_kernel", "t8_kernel",
+        "tg_kernel")
 
 
 def _device_items(prof):
