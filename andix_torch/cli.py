@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import getopt
 import math
+import os
 import sys
 
 import numpy as np
@@ -338,9 +339,36 @@ def calculate_bootstrap(
 
     The replicate stream is a pure function of (inputs, --seed): the
     seedable host float64 multinomial, the same stream ``andix`` prints,
-    so ``-b`` output is byte-identical across the two packages."""
+    so ``-b`` output is byte-identical across the two packages.  As in
+    ``andix``, ANDIX_DEVICE_BOOTSTRAP changes nothing but prints a note,
+    and ANDIX_BOOTSTRAP_SHIM_SEED (test-only) swaps in the splitmix64 +
+    conditional-binomial stream of the compiled parity oracle
+    (``oracle.ShimRng``), so the `-b` stdout can be compared byte for
+    byte with the reference binary."""
     pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
     averaged = [model_average(M[i][j], M[j][i]) for i, j in pairs]
+
+    if os.environ.get("ANDIX_DEVICE_BOOTSTRAP") == "1":
+        print(
+            "andix: ANDIX_DEVICE_BOOTSTRAP no longer changes the replicate "
+            "stream (it is backend-invariant); using the host resampler.",
+            file=sys.stderr,
+        )
+
+    shim_seed = os.environ.get("ANDIX_BOOTSTRAP_SHIM_SEED")
+    if shim_seed is not None:
+        from .oracle import ShimRng, shim_model_bootstrap
+
+        shim = ShimRng(int(shim_seed))
+        for _ in range(ctx.bootstrap):
+            B = _bootstrap_matrix(n)
+            for k, (i, j) in enumerate(pairs):
+                datum = shim_model_bootstrap(averaged[k], shim)
+                B[i][j] = datum
+                B[j][i] = datum
+            output.print_distances(B, seqs, n, False, ctx)
+        return
+
     rng = np.random.default_rng(ctx.seed)
     for _ in range(ctx.bootstrap):
         B = _bootstrap_matrix(n)

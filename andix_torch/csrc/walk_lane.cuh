@@ -1,6 +1,8 @@
 // Per-lane body of the flat chain walk, shared by the CUDA kernel
 // (chain_walk.cu, one warp per lane) and its host twin (walk_cpu.cpp,
-// built with g++ for the tests, one thread per lane).
+// built with g++ for the tests, one thread per lane).  Its probe step
+// (walk_probe) and windows also carry the count-in-loop replay
+// (replay_lane.cuh).
 //
 // Semantics are those of andix/chain/replay_device.py:chain_walk_flat
 // (the anchor scan dist_anchor, src/process.c:141-214, on precomputed
@@ -378,6 +380,49 @@ struct WalkWindows {
   }
 };
 
+// One probe step of a lane that has not finished, shared by the flat walk
+// and the count-in-loop replay (replay_lane.cuh).  While the gap to the
+// last anchor exceeds the threshold no lucky anchor can fire, so the pure
+// chain is hopped (one hop plus `chase` more, stopping at `stop`).  Where
+// the position lies before `stop` it is probed: the lucky check along the
+// last anchor's diagonal, else the table entry.  At or past `stop`,
+// pos_qj is the true chain's next probe position and nothing was probed.
+struct WalkProbe {
+  int pos_qj;        // the probed position
+  bool found;        // an anchor starts there
+  int this_s;        // its subject position (lucky, or the table's)
+  int this_len;      // the probe's match length (an anchor's if found)
+};
+
+template <class Windows>
+WALK_HD WalkProbe walk_probe(Windows& win, const WalkLane& w, int stop,
+                             int chase) {
+  WalkProbe p{w.pos, false, 0, 0};
+  if (w.pos - w.lq - w.ll > w.thr) {
+    p.pos_qj = win.hop(w.pos, w.thr);
+    for (int c = 0; c < chase; ++c) {
+      if (p.pos_qj >= stop) break;
+      p.pos_qj = win.hop(p.pos_qj, w.thr);
+    }
+  }
+  if (p.pos_qj >= stop) return p;
+  const int advance = p.pos_qj - w.lq;
+  const int gap = advance - w.ll;
+  const int try_s = w.ls + advance;
+  if (try_s < w.rl && gap >= 0 && gap <= w.thr) {
+    p.this_len = win.lce(w.qs + p.pos_qj, w.ss + try_s, p.pos_qj);
+    p.found = p.this_len >= w.thr;
+    p.this_s = try_s;
+  }
+  if (!p.found) {
+    const int v = win.mlun_at(p.pos_qj);
+    p.this_len = v & (WALK_UNIQ_BIT - 1);
+    p.found = (v & WALK_UNIQ_BIT) != 0 && p.this_len >= w.thr;
+    p.this_s = win.ps_at(p.pos_qj);
+  }
+  return p;
+}
+
 // Walks lane `lane` from its entry state; returns the loop iterations it
 // ran.  Every thread of the lane calls it with the same arguments but its
 // own `tid`; `stage` is the lane's [3, STAGE] staging buffer (shared by
@@ -392,43 +437,20 @@ WALK_HD int walk_lane(const WalkTables& t, int lane, WalkLane& w,
   w.fin = (w.pos >= w.seg_end) || (0 >= max_events);
   while (!w.fin && it < max_iters) {
     for (int u = 0; u < unroll && !w.fin; ++u) {
-      int pos_qj = w.pos;
-      if (w.pos - w.lq - w.ll > w.thr) {
-        pos_qj = win.hop(w.pos, w.thr);
-        for (int c = 0; c < chase; ++c) {
-          if (pos_qj >= w.seg_end) break;
-          pos_qj = win.hop(pos_qj, w.thr);
-        }
-      }
-      if (pos_qj >= w.seg_end) {
+      const WalkProbe p = walk_probe(win, w, w.seg_end, chase);
+      if (p.pos_qj >= w.seg_end) {
         // out of range: freeze at pos_qj exactly (the true chain's next
         // probe position, the next segment's entry)
-        w.pos = pos_qj;
+        w.pos = p.pos_qj;
       } else {
-        const int advance = pos_qj - w.lq;
-        const int gap = advance - w.ll;
-        const int try_s = w.ls + advance;
-        bool found = false;
-        int this_len = 0, this_s = 0;
-        if (try_s < w.rl && gap >= 0 && gap <= w.thr) {
-          this_len = win.lce(w.qs + pos_qj, w.ss + try_s, pos_qj);
-          found = this_len >= w.thr;
-          this_s = try_s;
-        }
-        if (!found) {
-          const int v = win.mlun_at(pos_qj);
-          this_len = v & (WALK_UNIQ_BIT - 1);
-          found = (v & WALK_UNIQ_BIT) != 0 && this_len >= w.thr;
-          this_s = win.ps_at(pos_qj);
-        }
-        if (found) {
-          w.lq = pos_qj;
-          w.ls = this_s;
-          w.ll = this_len;
+        if (p.found) {
+          w.lq = p.pos_qj;
+          w.ls = p.this_s;
+          w.ll = p.this_len;
           ++evn;
-          win.record(pos_qj, this_s, this_len, ev, lane);
+          win.record(p.pos_qj, p.this_s, p.this_len, ev, lane);
         }
-        w.pos = pos_qj + this_len + 1;
+        w.pos = p.pos_qj + p.this_len + 1;
       }
       w.fin = (w.pos >= w.seg_end) || (evn >= max_events);
     }

@@ -13,7 +13,9 @@ range-min structure.  Per subject group
 (``subject_group_counts``): ``[Sg, QB]`` match-statistics tables (two
 flag scans per subject), the
 segmented chain walk (``chain.segmented`` driving ``chain_walk_flat``),
-and the 16-cell counts from the anchor events on the host.
+and the 16-cell counts from the anchor events on the host; or, under
+``ANDIX_REPLAY=loop`` and when the event buffer overflows, the
+count-in-loop replay (``replay_rows``), which counts on the device.
 """
 
 from __future__ import annotations
@@ -29,10 +31,12 @@ from ..chain import events as chain_events
 from ..chain import segmented
 from ..chain.replay_device import (
     LANE_FIELDS, chain_walk_flat, fetch_walk, group_subject_tables,
+    replay_lanes, replay_rows,
 )
 from .. import native
 from ..device import memory_budget
 from ..model import CountMatrix
+from ..runtime import Model
 from . import doubling, matchstats, plcp, rmq, sa_numpy
 from .joint import SEPARATOR_BASE, BlockLayout
 
@@ -361,23 +365,55 @@ class TorchBackend:
         return segs, starts, rs_lens, thresholds, q_len2d
 
     def subject_group_counts(self, ctx: BlockContext, subject_genomes,
-                             subjects, model_kind):
-        """{subject: {query: CountMatrix}} for one subject group."""
+                             subjects, model_kind, replay: str | None = None):
+        """{subject: {query: CountMatrix}} for one subject group, by
+        ``andix``'s order (backend_jax.py:576-593): with ``replay``
+        ``events`` (the default; ``None`` reads ``ANDIX_REPLAY``) the
+        segmented walk and host counting from its anchor events, the
+        unsegmented walk where the segments do not converge or overflow
+        their event buffer, and the count-in-loop replay where the
+        unsegmented walk overflows too; with any other value (``loop``)
+        the count-in-loop replay alone."""
         dev = self.device
-        segs, starts, rs_lens, thresholds, q_len2d = self._group_tables(
-            ctx, subject_genomes, subjects
-        )
-        sg, gp = q_len2d.shape
-        qb = ctx.tq.shape[0]
-        ecap = int(os.environ.get("ANDIX_EVENT_CAP", str(max(1 << 16,
-                                                             qb // 2))))
-
+        replay = replay or os.environ.get("ANDIX_REPLAY", "events")
+        tables = self._group_tables(ctx, subject_genomes, subjects)
+        segs, starts = tables[:2]
         t0 = time.time()
         mlun, ps = group_subject_tables(ctx.sa, ctx.lcp, ctx.segid, ctx.tq,
                                         segs, starts)
-        t0 = prof(f"subject tables ({sg} subj)", t0, dev)
+        t0 = prof(f"subject tables ({len(segs)} subj)", t0, dev)
+        counts_h = None
+        if replay == "events":
+            counts_h, t0 = self._events_counts(ctx, subject_genomes,
+                                               subjects, model_kind, tables,
+                                               mlun, ps, t0)
+        if counts_h is None:
+            counts_h = self._loop_counts(ctx, model_kind, tables, mlun, ps,
+                                         t0)
+        del mlun, ps
 
-        overflowed = False
+        out: dict[int, dict[int, CountMatrix]] = {}
+        for k, genome in enumerate(subject_genomes):
+            row = {}
+            for g, qgenome in enumerate(ctx.q_genomes):
+                if qgenome == genome:
+                    continue
+                seq_len = int(ctx.q_off[g + 1] - ctx.q_off[g])
+                row[qgenome] = CountMatrix(counts_h[k, g].copy(), seq_len)
+            out[genome] = row
+        return out
+
+    def _events_counts(self, ctx, subject_genomes, subjects, model_kind,
+                       tables, mlun, ps, t0):
+        """[Sg, Gp, 16] counts from the segmented walk's anchor events and
+        the host count, or None after the unsegmented walk's event
+        overflow; and the phase clock."""
+        dev = self.device
+        _, starts, rs_lens, thresholds, q_len2d = tables
+        sg, gp = q_len2d.shape
+        qb = ctx.tq.shape[0]
+        ecap = int(os.environ.get("ANDIX_EVENT_CAP",
+                                  str(max(1 << 16, qb // 2))))
 
         def walk(arr, chunk_iters, maxev):
             nonlocal overflowed
@@ -403,16 +439,18 @@ class TorchBackend:
             )
             if res is not None:
                 break
-            if overflowed:
-                ecap *= 2  # event buffer too small: rerun wider
-            elif seg_k > 1:
-                seg_k = 1  # resolve did not converge: unsegmented walk
-            else:
+            if seg_k == 1:
+                if overflowed:
+                    break
                 raise RuntimeError("unsegmented chain walk returned no "
                                    "result without an event overflow")
-        del mlun, ps
+            # the segments did not converge or overflowed: unsegmented walk
+            seg_k = 1
+        if res is None:
+            t0 = prof(f"event buffer of {ecap} overflowed: to the "
+                      "count-in-loop replay", t0, dev)
+            return None, t0
         lanes, ev_q, ev_s, ev_len = res
-
         q_off_pad = np.full(gp + 1, ctx.q_off[-1], dtype=np.int64)
         q_off_pad[: len(ctx.q_off)] = ctx.q_off
         counts_h = chain_events.group_counts_from_events(
@@ -420,15 +458,21 @@ class TorchBackend:
             [subjects[genome].rs for genome in subject_genomes],
             thresholds, ctx.query_blob, q_off_pad, model_kind, self.threads,
         )
-        prof(f"host count from {ev_q.shape[0]} events", t0, dev)
+        t0 = prof(f"host count from {ev_q.shape[0]} events", t0, dev)
+        return counts_h, t0
 
-        out: dict[int, dict[int, CountMatrix]] = {}
-        for k, genome in enumerate(subject_genomes):
-            row = {}
-            for g, qgenome in enumerate(ctx.q_genomes):
-                if qgenome == genome:
-                    continue
-                seq_len = int(ctx.q_off[g + 1] - ctx.q_off[g])
-                row[qgenome] = CountMatrix(counts_h[k, g].copy(), seq_len)
-            out[genome] = row
-        return out
+    def _loop_counts(self, ctx, model_kind, tables, mlun, ps, t0):
+        """[Sg, Gp, 16] counts from the count-in-loop replay on the
+        device (exact equal counts for LogDet and ANI, as
+        backend_jax.py:998)."""
+        _, starts, rs_lens, thresholds, q_len2d = tables
+        lanes = replay_lanes(starts, rs_lens, thresholds, ctx.q_base_h,
+                             ctx.q_start_h, q_len2d, self.device)
+        counts, tally = replay_rows(
+            ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes,
+            model_kind in (Model.LOGDET, Model.ANI), CHASE)
+        counts_h = counts.cpu().numpy().astype(np.int64)
+        if os.environ.get("ANDIX_PROF_FILE"):
+            prof(f"count-in-loop replay ({q_len2d.shape[0]} subj, "
+                 f"{int(tally[..., 0].max())} probe steps)", t0, self.device)
+        return counts_h

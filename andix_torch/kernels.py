@@ -10,8 +10,8 @@ header under ``csrc/`` rebuilds.
 
 ``cpu_twin()`` builds the kernels' shared bodies (``flag_scan_tile.cuh``,
 ``walk_lane.cuh``, ``walk_sx_lane.cuh``, ``plcp_lane.cuh``,
-``rmq_tile.cuh``) with g++ into a small host library, so the kernels'
-logic can be held to the JAX functions on a machine without a card (each
+``rmq_tile.cuh``, ``replay_lane.cuh``) with g++ into a small host
+library, so the kernels' logic can be held to the JAX functions on a machine without a card (each
 at the kernel's tile, window or run sizes and at tiny ones).
 
 ``launches`` counts, per kernel wrapper, the calls that launched the
@@ -38,16 +38,16 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CUDA_SOURCES = ("flag_scan.cu", "chain_walk.cu", "walk_sx.cu", "plcp.cu",
-                "rmq.cu")
+                "rmq.cu", "replay.cu")
 CPU_TWIN_SOURCES = ("flag_scan_cpu.cpp", "walk_cpu.cpp", "walk_sx_cpu.cpp",
-                    "plcp_cpu.cpp", "rmq_cpu.cpp")
+                    "plcp_cpu.cpp", "rmq_cpu.cpp", "replay_cpu.cpp")
 CUDA_LIB = os.path.join(BUILD_DIR, "libandix_torch_cuda.so")
 CPU_TWIN_LIB = os.path.join(BUILD_DIR, "libandix_torch_walk_cpu.so")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 
 launches = {"flag_scan": 0, "chain_walk_flat": 0, "chain_walk_flat_sx": 0,
-            "plcp_lcp_hybrid": 0, "range_min_build": 0}
+            "plcp_lcp_hybrid": 0, "range_min_build": 0, "replay": 0}
 launches_by_card: dict[int, dict[str, int]] = {}
 
 _cuda_lib = None
@@ -76,6 +76,14 @@ _PLCP_ARGTYPES = [_P] * 3 + [_I] * 3 + [ctypes.c_int64] + [_I] * 2 + [_P] * 5
 # andix_range_min_build's (rmq.cu): values, Np, the six outputs, tg's rows;
 # the CUDA entry adds the stream, the host twin its tile-size switch
 _RMQ_ARGTYPES = [_P, ctypes.c_int64] + [_P] * 6 + [_I]
+# andix_replay_rows's (replay_lane.cuh, replay.cu): the walk's tables as
+# for the flat walk, the per-subject and per-query lane arrays and the
+# [Sg, G] query lengths, Sg, G, the exact flag and the chase, then the
+# counts, stats and error counter; the CUDA entry adds the stream, the
+# host twin its window-size switch
+_REPLAY_ARGTYPES = ([_P, _P, ctypes.c_int64] + [_P] * 7 + [_I] * 3
+                    + [_P, _P, ctypes.c_int64] + [_P] * 6 + [_I] * 4
+                    + [_P] * 3)
 
 
 def reset_launches() -> None:
@@ -203,6 +211,8 @@ def _load_cuda():
     lib.andix_plcp_hybrid.restype = _I
     lib.andix_range_min_build.argtypes = _RMQ_ARGTYPES + [_P]
     lib.andix_range_min_build.restype = _I
+    lib.andix_replay_rows.argtypes = _REPLAY_ARGTYPES + [_P]
+    lib.andix_replay_rows.restype = _I
     lib.andix_set_device.argtypes = [_I]
     lib.andix_set_device.restype = _I
     lib.andix_cuda_error_string.argtypes = [_I]
@@ -252,4 +262,6 @@ def _load_cpu_twin():
     lib.andix_plcp_read_cpu.restype = None
     lib.andix_range_min_build_cpu.argtypes = _RMQ_ARGTYPES + [_I]
     lib.andix_range_min_build_cpu.restype = _I
+    lib.andix_replay_rows_cpu.argtypes = _REPLAY_ARGTYPES + [_I]
+    lib.andix_replay_rows_cpu.restype = _I
     return lib

@@ -248,10 +248,13 @@ def _process_block(
     max_query_syms: int,
     ckpt: "TileCheckpoint | None" = None,
     qchunks: list[list[int]] | None = None,
+    replay: str | None = None,
 ) -> None:
     """One joint block's rows, query chunk by query chunk.  ``qchunks``
     (the sharded grid's chunks of all genomes) replaces the block's own
-    chunking; the block's genomes are dropped from them."""
+    chunking; the block's genomes are dropped from them.  ``replay``
+    (``events`` or ``loop``; ``None``: ``ANDIX_REPLAY``) goes to the
+    backend's ``subject_group_counts``."""
     n = len(seqs)
     row_acc: dict[int, dict[int, CountMatrix]] = {i: {} for i in block}
     if qchunks is None:
@@ -276,7 +279,8 @@ def _process_block(
         for gs in range(0, len(block), group):
             gset = block[gs : gs + group]
             rows = backend.subject_group_counts(
-                bctx, gset, {i: subjects[i] for i in gset}, ctx.model
+                bctx, gset, {i: subjects[i] for i in gset}, ctx.model,
+                replay=replay,
             )
             for i in gset:
                 done = 0
@@ -427,6 +431,9 @@ def _process_sharded(todo, seqs, subjects, ctx: Context, M, progress, ckpt,
     ][first: first + len(devices)]
     qchunks = _query_chunks([], n, seqs, max_query_syms)
     processes = len(worker_counts)
+    # andix's sharded step reads its own replay mode (parallel.py:345-350)
+    replay = os.environ.get("ANDIX_SHARDED_REPLAY",
+                            os.environ.get("ANDIX_REPLAY", "events"))
     meter = parallel.LockedProgress(progress) if progress is not None else None
 
     def work(device, share, rows):
@@ -437,7 +444,7 @@ def _process_sharded(todo, seqs, subjects, ctx: Context, M, progress, ckpt,
             _process_block([rows[k] for k in blk], seqs, subjects, ctx,
                            backend, M, meter, max_query_syms,
                            ckpt=ckpt if processes == 1 else None,
-                           qchunks=qchunks)
+                           qchunks=qchunks, replay=replay)
 
     jobs = [(first + w, d, s, r)
             for w, (d, s, r) in enumerate(zip(devices, shares, rows_of)) if r]

@@ -54,6 +54,16 @@ line each; any failed phase raises and the script exits non-zero:
    subject a group, whose groups of g0 and g1 stall and go to the joint
    schedule; the same bytes from both; the block's SA and LCP on the CPU
    backend too; and an 8 x 50 kbp copy on both schedules, card and CPU;
+   before the repeat family, the count-in-loop replay (``phase_replay``):
+   the kernel against its plain version over every lane of the 8 x 50 kbp
+   family and of 8 x 1 Mbp (JC and LogDet) and of the small family's
+   clonal copy (LogDet), exactly; the loop path's counts against the
+   events path's at 8 x 1 and 8 x 5 Mbp (JC and LogDet) with the kernel's
+   times; the CLI at both sizes under
+   ``ANDIX_REPLAY=loop`` (phases 6 and 7's bytes, one replay launch and
+   no walk launch, the loop phase beside the events run's walk and host
+   count) and at 8 x 1 Mbp with ``ANDIX_EVENT_CAP=64`` (the buffer
+   overflows and the replay kernel counts);
 8. the pair grid over several workers.  It prints
    ``torch.cuda.device_count()`` and the worker layout: with two or more
    cards the workers are the cards and the CLI runs with every card
@@ -83,8 +93,10 @@ and the scan do a few integer operations per byte, so bytes bound them.
 The sampled-PLCP LCP's bytes are the text and SA read and the LCP
 written, 12 B a position, and the level entries the samples' walks read,
 8 B a sample and row.  The range-min build's are the values read and its
-arrays written once (``rmq_bound``).  No single PyTorch call computes any
-of the five functions, so ``library_ms`` is null.
+arrays written once (``rmq_bound``).  The replay's are set out at
+``replay_bound``; its row reports the kernel, the plain version and the
+bound from the plain run's counts at 8 x 1 Mbp in JC.  No single PyTorch
+call computes any of the six functions, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -804,15 +816,16 @@ def phase_cli_parity(tmp):
         f"{len(out_c)} bytes, exit {code_c}")
 
 
-def _cli_run(paths, index, tmp, label):
-    """One CLI run of ``-m JC`` on the card under ``ANDIX_INDEX=index``,
-    launch counts set to 0 just before and read just after; prints the
-    wall, per-phase seconds, peak memory and launches."""
+def _cli_run(paths, index, tmp, label, env=None):
+    """One CLI run of ``-m JC`` on the card under ``ANDIX_INDEX=index``
+    (and the variables in ``env``), launch counts set to 0 just before
+    and read just after; prints the wall, per-phase seconds, peak memory
+    and launches."""
     from andix_torch import kernels
 
     prof_path = os.path.join(tmp, f"prof_{label}.txt")
-    os.environ["ANDIX_PROF_FILE"] = prof_path
-    os.environ["ANDIX_INDEX"] = index
+    env = dict(env or {}, ANDIX_PROF_FILE=prof_path, ANDIX_INDEX=index)
+    os.environ.update(env)
     try:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -825,7 +838,8 @@ def _cli_run(paths, index, tmp, label):
         wall = time.time() - t0
         launches = dict(kernels.launches)
     finally:
-        del os.environ["ANDIX_PROF_FILE"], os.environ["ANDIX_INDEX"]
+        for name in env:
+            del os.environ[name]
     peak = torch.cuda.max_memory_allocated()
     with open(prof_path) as f:
         phases = [line.strip() for line in f if line.strip()]
@@ -885,8 +899,8 @@ def phase_main_path(tmp, card):
     fam = make_family(8, 1_000_000)
     paths = write_fasta(tmp, fam)
     padded = bucket(sum(2 * len(d) + 2 for _, d in fam))
-    out, launches, peak, _, _ = _cli_run(paths, "auto", tmp,
-                                      f"8x1Mbp main path on {card}")
+    out, launches, peak, wall, phases = _cli_run(
+        paths, "auto", tmp, f"8x1Mbp main path on {card}")
     say(f"  {peak / padded:.2f} B per padded symbol ({padded} padded "
         f"symbols)")
     if min(launches["flag_scan"], launches["chain_walk_flat"],
@@ -907,7 +921,7 @@ def phase_main_path(tmp, card):
         raise AssertionError(f"8x1Mbp subject run launches {sx_launches}")
     say("  8x1Mbp: ANDIX_INDEX=subject PHYLIP == joint schedule PHYLIP, "
         f"{len(out)} bytes")
-    return launches, out, paths
+    return launches, out, paths, (wall, phases)
 
 
 def phase_full_size(tmp, card):
@@ -916,8 +930,8 @@ def phase_full_size(tmp, card):
     paths = write_fasta(tmp, fam)
     out_sx, sx_launches, _, _, _ = _cli_run(
         paths, "subject", tmp, f"8x5Mbp subject index on {card}")
-    out_j, _, _, _, _ = _cli_run(paths, "joint", tmp,
-                                 f"8x5Mbp joint schedule on {card}")
+    out_j, _, _, wall_j, phases_j = _cli_run(
+        paths, "joint", tmp, f"8x5Mbp joint schedule on {card}")
     if out_sx != out_j:
         raise AssertionError(f"8x5Mbp subject-index PHYLIP != joint:\n"
                              f"{out_sx}\n{out_j}")
@@ -928,7 +942,210 @@ def phase_full_size(tmp, card):
     say(f"  8x5Mbp: ANDIX_INDEX=subject PHYLIP == ANDIX_INDEX=joint PHYLIP, "
         f"{len(out_sx)} bytes")
     _check_matrix(out_sx, 8)
-    return sx_launches, out_j, paths
+    return sx_launches, out_j, paths, (wall_j, phases_j)
+
+
+def _replay_block(dev, fam):
+    """A family's joint block on the card (every genome a subject), its
+    [Sg, QB] subject tables and the count-in-loop replay's lanes."""
+    from andix_torch.chain import replay_device as rd
+    from andix_torch.esa import joint
+    from andix_torch.esa.backend import TorchBackend
+    from andix_torch.sequence import Seq, subject_init
+
+    subjects = [subject_init(Seq(d, name), 0.025) for name, d in fam]
+    be = TorchBackend(dev)
+    ctx = be.prepare_block(joint.build_block(
+        {i: s.rs for i, s in enumerate(subjects)}, {}))
+    genomes = list(range(len(fam)))
+    segs, starts, rs_lens, thr, q_len2d = be._group_tables(
+        ctx, genomes, dict(enumerate(subjects)))
+    mlun, ps = rd.group_subject_tables(ctx.sa, ctx.lcp, ctx.segid, ctx.tq,
+                                       segs, starts)
+    lanes = rd.replay_lanes(starts, rs_lens, thr, ctx.q_base_h,
+                            ctx.q_start_h, q_len2d, dev)
+    return be, ctx, subjects, mlun, ps, lanes
+
+
+def replay_bound(lanes, tally, counts=None) -> tuple[int, float]:
+    """Bytes a count-in-loop replay launch must move, and their time at
+    the card's memory rate.  Per lane: its query length read, 64 B of
+    counts and 12 B of tallies written; per subject row 12 B and per
+    query 8 B of lane fields read; 2 B a gap site and 1 B an exact-mode
+    equal site (``tally``, the kernel's or the plain version's).  The
+    walk's reads: with the plain run's ``counts`` as ``walk_bound``
+    counts them (4 B per mlun entry read, 4 B of ps per table anchor, the
+    lucky checks' bytes); without them (no plain run, at 8 x 5 Mbp) 4 B
+    a probe step, a floor: every step reads at least one table entry not
+    read before, or takes a lucky check."""
+    sg, g = lanes["q_len"].shape
+    t = tally.long().sum(dim=(0, 1)).tolist()
+    nbytes = 12 * sg + 8 * g + 80 * sg * g + 2 * t[1] + t[2]
+    if counts is None:
+        nbytes += 4 * t[0]
+    else:
+        nbytes += (4 * (counts["hops"] + counts["table_probes"]
+                        + counts["table_anchors"]) + counts["lucky_bytes"])
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _timed(fn):
+    """fn's result and its milliseconds on the card (CUDA events, once,
+    cold)."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _phase_seconds(phases, key) -> float:
+    return sum(float(p.rsplit(": ", 1)[1].rstrip("s"))
+               for p in phases if key in p)
+
+
+def phase_replay(dev, tmp, card, events_runs):
+    """The count-in-loop replay (``ANDIX_REPLAY=loop``, and the fallback
+    of an event overflow).
+
+    The kernel against the plain version, exactly (counts and per-lane
+    tallies), over every lane of the 8 x 50 kbp family and of 8 x 1 Mbp
+    in both modes (JC's split equal counts, LogDet's exact ones) and of
+    the small family's clonal copy (g1 = g0) in LogDet's.  The plain walk
+    does not depend on the mode, so each block is walked once
+    (``replay_walk_plain``) and counted once a mode
+    (``replay_count_plain``); the plain time is the two together.  Timed
+    there (kernel: mean of 5 launches; plain: once) with the byte bound
+    from the plain run's counts.  At 8 x 1 and 8 x 5 Mbp the block's
+    counts through the loop path (the kernel) against the events path's
+    (the flat walk and the host count), JC and LogDet; at 8 x 5 Mbp the
+    kernel timed with the floor bound from its own tallies (the plain
+    version is not run there: its longest lane takes 196,582 lock-step
+    steps).  Then the CLI at 8 x 1 and 8 x 5 Mbp under
+    ``ANDIX_REPLAY=loop``: the bytes of the default (events) runs
+    ``events_runs`` (label, paths, PHYLIP, (wall, phases)), the replay
+    launched once and the walk never, the loop phase beside the events
+    run's walk and host count; and 8 x 1 Mbp with ``ANDIX_EVENT_CAP=64``,
+    which overflows and must take the kernel.  Returns (kernel ms, plain
+    ms and bound ms at 8 x 1 Mbp JC, max_abs_err, replay launches of the
+    8 x 1 Mbp loop run)."""
+    from andix_torch import kernels
+    from andix_torch.chain import replay_device as rd
+    from andix_torch.esa.backend import CHASE
+    from andix_torch.runtime import Model
+
+    diag_win = kernels.cuda_lib().andix_walk_diag_win()
+    err = 0
+    row = None
+    small = make_family(8, 50_000)
+
+    def against_events(label, be, ctx, subjects, mlun, ps, lanes):
+        genomes = list(range(8))
+        for model in (Model.JC, Model.LOGDET):
+            rows = {mode: be.subject_group_counts(
+                ctx, genomes, dict(enumerate(subjects)), model, replay=mode)
+                for mode in ("events", "loop")}
+            a, b = ([torch.from_numpy(np.stack([r[i][j].counts
+                                                 for i in genomes
+                                                 for j in r[i]]))]
+                    for r in (rows["events"], rows["loop"]))
+            e = max_abs_err(a, b)
+            if e:
+                raise AssertionError(f"replay {label} {model.value}: loop "
+                                     f"counts != events counts ({e})")
+            args = (ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes,
+                    model == Model.LOGDET, CHASE)
+            _, tally = rd.replay_rows(*args)
+            ms = cuda_ms(lambda: rd.replay_rows(*args), 5)
+            nbytes, bound_ms = replay_bound(lanes, tally)
+            t = tally.long()
+            say(f"replay {label} {model.value}: loop counts == events counts "
+                f"({len(a[0])} pairs); kernel {ms:.4f} ms; probe steps: "
+                f"longest lane {int(t[..., 0].max())}, all "
+                f"{int(t[..., 0].sum())}; gap sites {int(t[..., 1].sum())}, "
+                f"exact equal sites {int(t[..., 2].sum())}; floor bound "
+                f"{nbytes} B -> {bound_ms:.6f} ms "
+                f"({100 * bound_ms / ms:.3f}% of the kernel)")
+
+    for label, fam, modes in (
+            ("8x50kbp", small, (False, True)),
+            ("8x50kbp clonal", clonal(small), (True,)),
+            ("8x1Mbp", make_family(8, 1_000_000), (False, True)),
+            ("8x5Mbp", make_family(8, 5_000_000), ())):
+        be, ctx, subjects, mlun, ps, lanes = _replay_block(dev, fam)
+        args = (ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes)
+        counts = {}
+        walk = None
+        if modes:
+            walk, w_ms = _timed(lambda: rd.replay_walk_plain(
+                ctx.isa, ctx.rm, mlun, ps, lanes, CHASE, counts, diag_win))
+        for exact in modes:
+            ref, c_ms = _timed(lambda: rd.replay_count_plain(
+                walk, ctx.text, exact, counts))
+            p_ms = w_ms + c_ms
+            got = rd.replay_rows(*args, exact, CHASE)
+            e = max_abs_err(got, ref)
+            err = max(err, e)
+            if e:
+                raise AssertionError(f"replay {label} exact={exact}: kernel "
+                                     f"!= plain, max_abs_err {e}")
+            ms = cuda_ms(lambda: rd.replay_rows(*args, exact, CHASE), 5)
+            nbytes, bound_ms = replay_bound(lanes, ref[1], counts)
+            floor = replay_bound(lanes, ref[1])[0]
+            say(f"replay {label} {'exact (LogDet)' if exact else 'fast (JC)'}"
+                f": kernel == plain (counts and tallies), kernel {ms:.4f} ms,"
+                f" plain {p_ms:.1f} ms (walk {w_ms:.1f} ms, count "
+                f"{c_ms:.1f} ms); {int(ref[1][..., 0].max())} probe steps "
+                f"in the longest lane")
+            say(f"  counts {json.dumps(counts)}; {nbytes} B to move -> bound "
+                f"{bound_ms:.6f} ms ({100 * bound_ms / ms:.3f}% of the "
+                f"kernel); the 4-B-a-probe floor {floor} B")
+            if label == "8x1Mbp" and not exact:
+                row = (ms, p_ms, bound_ms)
+        if label.startswith(("8x1Mbp", "8x5Mbp")):
+            against_events(label, be, ctx, subjects, mlun, ps, lanes)
+        # the loop runs below report their own peaks: hold no block here
+        del be, ctx, subjects, mlun, ps, lanes, args, walk
+        torch.cuda.empty_cache()
+
+    loop_launches = None
+    for label, paths, out_ev, (wall_ev, ph_ev) in events_runs:
+        out, launches, _, wall, ph = _cli_run(
+            paths, "joint", tmp, f"{label} ANDIX_REPLAY=loop on {card}",
+            env={"ANDIX_REPLAY": "loop"})
+        if out != out_ev:
+            raise AssertionError(f"{label} ANDIX_REPLAY=loop PHYLIP != the "
+                                 f"events run's:\n{out}\n{out_ev}")
+        if launches["replay"] != 1 or launches["chain_walk_flat"] or min(
+                launches["flag_scan"], launches["plcp_lcp_hybrid"],
+                launches["range_min_build"]) <= 0:
+            raise AssertionError(f"{label} loop run launches {launches}")
+        loop_s = _phase_seconds(ph, "count-in-loop replay")
+        walk_s = _phase_seconds(ph_ev, "segmented walk")
+        count_s = _phase_seconds(ph_ev, "host count")
+        say(f"  {label}: ANDIX_REPLAY=loop PHYLIP == events PHYLIP; loop "
+            f"phase {loop_s:.6f} s against the events run's walk "
+            f"{walk_s:.6f} s + host count {count_s:.6f} s = "
+            f"{walk_s + count_s:.6f} s; walls loop {wall:.3f} s, events "
+            f"{wall_ev:.3f} s")
+        if loop_launches is None:
+            loop_launches = launches["replay"]
+
+    label, paths, out_ev, _ = events_runs[0]
+    out, launches, _, _, ph = _cli_run(
+        paths, "joint", tmp, f"{label} ANDIX_EVENT_CAP=64 on {card}",
+        env={"ANDIX_EVENT_CAP": "64"})
+    if out != out_ev or launches["replay"] != 1 or \
+            launches["chain_walk_flat"] < 1 or \
+            not any("overflowed" in p for p in ph):
+        raise AssertionError(f"{label} forced overflow: launches {launches},"
+                             f" bytes equal {out == out_ev}")
+    say(f"  {label} ANDIX_EVENT_CAP=64: the event buffer overflowed, the "
+        "count-in-loop kernel counted, PHYLIP == the default run's")
+    return (*row, err, loop_launches)
 
 
 def _stalls(prof_path) -> int:
@@ -1268,8 +1485,12 @@ def main() -> int:
         phase_cli_parity(tmp)
     with tempfile.TemporaryDirectory() as tmp1, \
             tempfile.TemporaryDirectory() as tmp5:
-        launches, out_1m, paths_1m = phase_main_path(tmp1, smi)
-        sx_launches, out_5m, paths_5m = phase_full_size(tmp5, smi)
+        launches, out_1m, paths_1m, events_1m = phase_main_path(tmp1, smi)
+        sx_launches, out_5m, paths_5m, events_5m = phase_full_size(tmp5,
+                                                                   smi)
+        replay_t = phase_replay(dev, tmp1, smi, [
+            ("8x1Mbp", paths_1m, out_1m, events_1m),
+            ("8x5Mbp", paths_5m, out_5m, events_5m)])
         with tempfile.TemporaryDirectory() as tmp_rep:
             phase_repeat(tmp_rep, smi)
         phase_multi_card(paths_5m, out_5m, paths_1m, out_1m)
@@ -1304,6 +1525,12 @@ def main() -> int:
          "replaces": "andix/esa/rmq.py:67",
          "launches": launches["range_min_build"], "max_abs_err": rmq_t[2],
          "ms": rmq_t[0], "plain_ms": rmq_t[1], "bound_ms": rmq_t[3],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "replay", "route": "cuda",
+         "source": "andix_torch/csrc/replay.cu",
+         "replaces": "andix/chain/replay_device.py:603",
+         "launches": replay_t[4], "max_abs_err": replay_t[3],
+         "ms": replay_t[0], "plain_ms": replay_t[1], "bound_ms": replay_t[2],
          "bound_by": "bytes", "library_ms": None},
     ]}
     say(f"chip_smoke: {time.time() - t_start:.1f} s")

@@ -144,3 +144,46 @@ def test_duplicated_genome_on_both_schedules(capsys, tmp_path, rng, dna,
     code, out = _both(capsys, ["--progress=never"] + paths)
     assert out.startswith("4\n")
     assert bool(calls) == retreat
+
+
+@pytest.mark.parametrize("device_note", [False, True])
+def test_bootstrap_shim_stream(capsys, family, monkeypatch, device_note):
+    """``-b 3`` under ANDIX_BOOTSTRAP_SHIM_SEED=7 draws the parity oracle's
+    splitmix64 stream in both packages: stdout bytes equal, and so is
+    stderr, which carries ANDIX_DEVICE_BOOTSTRAP's note when it is set."""
+    monkeypatch.setenv("ANDIX_BOOTSTRAP_SHIM_SEED", "7")
+    if device_note:
+        monkeypatch.setenv("ANDIX_DEVICE_BOOTSTRAP", "1")
+    args = ["--progress=never", "-b", "3"] + family
+    code_j = jcli.main(list(args))
+    out_j = capsys.readouterr()
+    code_t = cli.main(["--backend", "cpu"] + args)
+    out_t = capsys.readouterr()
+    assert out_t.out == out_j.out and out_t.err == out_j.err
+    assert code_t == code_j
+    assert out_t.out.split("\n").count("5") == 3  # the matrix, 2 replicates
+    assert ("ANDIX_DEVICE_BOOTSTRAP" in out_t.err) == device_note
+    monkeypatch.delenv("ANDIX_BOOTSTRAP_SHIM_SEED")
+    cli.main(["--backend", "cpu"] + args)
+    assert capsys.readouterr().out != out_t.out  # the shim stream is other
+
+
+def test_oracle_is_andix_s(rng, dna, mutator):
+    """The port's oracle: ShimRng's first 64 draws (raw, uniform and
+    binomial) and the brute-force matching statistics equal andix's."""
+    from andix import oracle as joracle
+    from andix_torch import oracle
+
+    for seed in (0, 7, 2**63 + 5):
+        a, b = oracle.ShimRng(seed), joracle.ShimRng(seed)
+        assert [a.next64() for _ in range(64)] == [b.next64()
+                                                   for _ in range(64)]
+        assert [a.uniform() for _ in range(64)] == [b.uniform()
+                                                    for _ in range(64)]
+        assert ([a.binomial(0.3, 100) for _ in range(8)]
+                == [b.binomial(0.3, 100) for _ in range(8)])
+    rs = dna(rng, 120)
+    query = mutator(rng, rs[10:90], 0.1)
+    for x, y in zip(oracle.match_stats_brute(rs, query),
+                    joracle.match_stats_brute(rs, query)):
+        assert (x == y).all()

@@ -188,6 +188,35 @@ def test_walk_kernel_equals_plain(cuda, k, iters, maxev, ecap, chase,
             assert (a == b[:, :a.shape[1]]).all()
 
 
+@pytest.mark.parametrize("clonal", [False, True])
+@pytest.mark.parametrize("exact", [False, True])
+def test_replay_kernel_equals_plain(cuda, clonal, exact):
+    """The count-in-loop replay over every (subject, query) lane of the
+    3 x 3000 bp family (and of a copy where g1 = g0): counts and the
+    per-lane tallies equal the plain version's."""
+    seqs = _family()
+    if clonal:
+        seqs[1] = Seq(seqs[0].data.copy(), "g1")
+    subjects = [subject_init(s, 0.025) for s in seqs]
+    be = TorchBackend(cuda)
+    ctx = be.prepare_block(joint.build_block(
+        {i: subjects[i].rs for i in range(3)}, {}))
+    segs, starts, rs_lens, thr, q_len2d = be._group_tables(
+        ctx, [0, 1, 2], dict(enumerate(subjects)))
+    mlun, ps = rd.group_subject_tables(ctx.sa, ctx.lcp, ctx.segid, ctx.tq,
+                                       segs, starts)
+    lanes = rd.replay_lanes(starts, rs_lens, thr, ctx.q_base_h,
+                            ctx.q_start_h, q_len2d, cuda)
+    before = kernels.launches["replay"]
+    got = rd.replay_rows(ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes, exact,
+                         4)
+    assert kernels.launches["replay"] == before + 1
+    ref = rd.replay_rows_plain(ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes,
+                               exact, 4)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert int(got[0].sum()) > 0
+
+
 def _sx_group(device, k, cache_k):
     """The 3 x 3000 bp family's subject index on ``device`` and its lanes
     cut into k cold segments."""

@@ -1,8 +1,9 @@
 """andix_torch joint schedule end to end on the CPU (``--backend cpu``):
 the n x n count grids must equal andix's JAX backend on the joint
 schedule exactly — the segmented-walk families of test_segmented.py,
-blocked and query-chunked plans, event-buffer overflow — plus checkpoint
-rows shared across the two packages and the import boundary."""
+blocked and query-chunked plans, event-buffer overflow (to the
+count-in-loop replay) — plus checkpoint rows shared across the two
+packages and the import boundary."""
 
 import os
 import subprocess
@@ -109,19 +110,31 @@ def test_query_chunks(joint_schedule, monkeypatch):
     joint_schedule(fam)
 
 
-def test_event_overflow_doubles_the_buffer(joint_schedule, monkeypatch):
-    monkeypatch.setenv("ANDIX_EVENT_CAP", "8")
-    calls = []
-    orig = segmented.segmented_group_anchors
+def test_event_overflow_falls_back_to_loop(joint_schedule, monkeypatch):
+    """An event buffer too small for the walk (ANDIX_EVENT_CAP=4) sends
+    the group, as andix does, from the segmented walk to the unsegmented
+    one and then to the count-in-loop replay, with equal counts; the
+    buffer is not widened."""
+    from andix_torch.esa import backend
+
+    monkeypatch.setenv("ANDIX_EVENT_CAP", "4")
+    caps, replays = [], []
+    orig, orig_replay = (segmented.segmented_group_anchors,
+                         backend.replay_rows)
 
     def counting(walk, sg, gp, qb, *rest):
-        calls.append(rest[-2])  # ecap
+        caps.append(rest[-3:-1])  # seg_k, ecap
         return orig(walk, sg, gp, qb, *rest)
 
+    def replaying(*a, **kw):
+        replays.append(a[6])  # exact_counts
+        return orig_replay(*a, **kw)
+
     monkeypatch.setattr(segmented, "segmented_group_anchors", counting)
+    monkeypatch.setattr(backend, "replay_rows", replaying)
     fam = _family(3, 2000, [0.02, 0.3], seed=47)
     joint_schedule(fam, k=2)
-    assert calls[:3] == [8, 16, 32]
+    assert caps == [(2, 4), (1, 4)] and replays == [False]
 
 
 def test_checkpoint_rows_shared_across_packages(tmp_path, monkeypatch):
@@ -165,7 +178,7 @@ def test_port_imports_neither_jax_nor_andix():
         "import andix_torch, andix_torch.cli, andix_torch.pipeline\n"
         "import andix_torch.kernels, andix_torch.native\n"
         "import andix_torch.parallel, andix_torch._distributed\n"
-        "import andix_torch.device\n"
+        "import andix_torch.device, andix_torch.oracle\n"
         "import andix_torch.chain.replay_device, andix_torch.esa.backend\n"
         "import andix_torch.subject_pipeline, andix_torch.chain.walk_sx\n"
         "import andix_torch.esa.subject_index, andix_torch.esa.sa_numpy\n"
