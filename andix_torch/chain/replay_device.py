@@ -15,9 +15,10 @@
   version written in torch ops, which takes every LCE by ISA + range-min
   as the JAX version does.
 * ``replay_rows``: ``andix``'s count-in-loop replay (``replay_rows_device``)
-  of a subject group, every (subject, query) lane walked unsegmented
-  with the same probe step, counting the 16 substitution cells on the
-  device (kernel ``csrc/replay.cu``; ``replay_rows_plain`` on the CPU).
+  of a subject group, every (subject, query) lane walked with the same
+  probe step, counting the 16 substitution cells on the device (kernels
+  ``csrc/replay.cu``: query segments walked at once and spliced exactly
+  on the card; ``replay_rows_plain``, unsegmented, on the CPU).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from .. import kernels
 from ..esa import matchstats, rmq
+from . import segmented
 
 UNIQ_BIT = 1 << 30
 
@@ -418,32 +420,63 @@ A_BYTE = 65
 _SITE_BATCH = 1 << 24
 
 
+# the replay's query segments (replay_segments): one below the segmented
+# walk's threshold (esa.backend.chain_segments); above it, enough that the
+# live lanes fill the card with REPLAY_WARPS_PER_SM warps an SM, each
+# segment at least REPLAY_MIN_SEGMENT symbols long.  The trail is the
+# segmented walk's repair budget.
+REPLAY_MIN_QLEN = 1 << 17
+REPLAY_MIN_SEGMENT = 1 << 15
+REPLAY_WARPS_PER_SM = 24
+REPLAY_TRAIL = segmented.REPAIR_EVENTS
+
+
+def replay_segments(q_len, sms: int) -> int:
+    """Query segments K of every lane of a replay over the [Sg, G] query
+    lengths ``q_len`` on a card of ``sms`` SMs."""
+    if not q_len.numel():
+        return 1
+    max_qlen, live = torch.stack([q_len.max(),
+                                  (q_len > 0).sum().to(q_len.dtype)]).tolist()
+    if max_qlen < REPLAY_MIN_QLEN:
+        return 1
+    want = -(-sms * REPLAY_WARPS_PER_SM // max(1, live))
+    return max(1, min(want, max_qlen // REPLAY_MIN_SEGMENT))
+
+
 def replay_rows(isa, rm, text, mlun, ps, lanes: dict, exact_counts: bool,
-                chase: int):
+                chase: int, segments: int | None = None, splice=None):
     """Count-in-loop replay of a subject group (``andix``'s
     ``replay_rows_device``): every (subject row k, query g) lane walked
-    unsegmented from position 0 with the flat walk's probe step, counting
-    the 16 substitution cells as it goes — the gap between paired anchors
-    byte against byte, equal anchors as ``model_count_equal`` does
-    (exactly, byte by byte, when ``exact_counts``: LogDet and ANI).
+    from position 0 with the flat walk's probe step, counting the 16
+    substitution cells as it goes — the gap between paired anchors byte
+    against byte, equal anchors as ``model_count_equal`` does (exactly,
+    byte by byte, when ``exact_counts``: LogDet and ANI).
 
     ``text`` is the block's uint8 text (``BlockContext.text``); ``lanes``
     maps each of ``REPLAY_FIELDS`` to an int32 tensor.  Returns (counts,
     int32 [Sg, G, 16]; tally, int32 [Sg, G, 3]: each lane's probe steps,
-    gap sites and exact-mode equal sites).  On CUDA tensors it launches
-    the kernel (``csrc/replay.cu``), on CPU tensors it runs
-    ``replay_rows_plain``."""
+    gap sites and exact-mode equal sites, those of the unsegmented walk).
+
+    On CPU tensors it runs ``replay_rows_plain``.  On CUDA tensors it
+    launches the two passes of ``csrc/replay.cu``: each lane cut into
+    ``segments`` query segments (default ``replay_segments``) walked at
+    once, then spliced exactly on the card; the result does not depend on
+    ``segments``.  ``splice``, when a dict, receives the segments, the
+    trail length and int32 [Sg, G, 3]: each lane's merges, fallbacks and
+    repair steps."""
     if mlun.device.type == "cpu":
         return replay_rows_plain(isa, rm, text, mlun, ps, lanes,
                                  exact_counts, chase)
     return _replay_rows_cuda(isa, rm, text, mlun, ps, lanes, exact_counts,
-                             chase)
+                             chase, segments, splice)
 
 
 def _replay_args(isa, rm, text, mlun, ps, lanes, exact_counts, chase,
-                 device):
-    """Checked arguments and zeroed outputs shared by the kernel and its
-    host twin."""
+                 segments, trail, seg_ints, device):
+    """Checked arguments, the workspace (``seg_ints`` ints a sublane: the
+    library's ``replay_seg_ints``) and the zeroed outputs shared by the
+    kernels and their host twin."""
     i32 = torch.int32
     tables = _table_args("replay_rows", isa, rm, text, mlun, ps, device)
     sg, g = lanes["q_len"].shape
@@ -456,50 +489,91 @@ def _replay_args(isa, rm, text, mlun, ps, lanes, exact_counts, chase,
                              f"{tuple(lanes[name].shape)}, expected {size}")
     if sg > mlun.shape[0]:
         raise ValueError("replay_rows: more subject rows than table rows")
-    counts = torch.zeros((sg, g, 16), dtype=i32, device=device)
-    tally = torch.zeros((sg, g, 3), dtype=i32, device=device)
-    err = torch.zeros(1, dtype=i32, device=device)
-    args = (
-        tables + [lanes[name].data_ptr() for name in REPLAY_FIELDS]
-        + [sg, g, int(bool(exact_counts)), int(chase)]
-        + [counts.data_ptr(), tally.data_ptr(), err.data_ptr()]
-    )
-    return args, counts, tally, err
+    if segments < 1 or trail < 1:
+        raise ValueError(f"replay_rows: {segments} segments and a trail of "
+                         f"{trail} (both must be at least 1)")
+    out = {
+        # each sublane's workspace is written by pass 1 before pass 2
+        # reads it; -1 elsewhere
+        "ws": torch.full((sg * g * segments * seg_ints(trail),), -1,
+                         dtype=i32, device=device),
+        "counts": torch.zeros((sg, g, 16), dtype=i32, device=device),
+        "tally": torch.zeros((sg, g, 3), dtype=i32, device=device),
+        "splice": torch.zeros((sg, g, 3), dtype=i32, device=device),
+        "err": torch.zeros(1, dtype=i32, device=device),
+    }
+    head = (tables + [lanes[name].data_ptr() for name in REPLAY_FIELDS]
+            + [sg, g, segments, trail, int(bool(exact_counts)), int(chase)])
+    return head, out
 
 
-def _replay_checked(counts, tally, err):
-    if int(err):
-        raise RuntimeError(f"replay_rows: {int(err)} counted intervals "
-                           "reach outside the text")
-    return counts, tally
+def _replay_checked(out, segments, trail, splice):
+    if int(out["err"]):
+        raise RuntimeError(f"replay_rows: {int(out['err'])} counted "
+                           "intervals reach outside the text")
+    if splice is not None:
+        splice.update(segments=segments, trail=trail, lanes=out["splice"])
+    return out["counts"], out["tally"]
 
 
-def _replay_rows_cuda(isa, rm, text, mlun, ps, lanes, exact_counts, chase):
+def _replay_rows_cuda(isa, rm, text, mlun, ps, lanes, exact_counts, chase,
+                      segments, splice):
     device = mlun.device
     if device.type != "cuda":
         raise ValueError("replay_rows: tables must be on a CUDA device")
-    args, counts, tally, err = _replay_args(isa, rm, text, mlun, ps, lanes,
-                                            exact_counts, chase, device)
-    _check_row_window("replay_rows", mlun, ps)
+    if segments is None:
+        segments = replay_segments(
+            lanes["q_len"],
+            torch.cuda.get_device_properties(device).multi_processor_count)
     lib = kernels.cuda_lib()
+    head, out = _replay_args(isa, rm, text, mlun, ps, lanes, exact_counts,
+                             chase, segments, REPLAY_TRAIL,
+                             lib.andix_replay_seg_ints, device)
+    _check_row_window("replay_rows", mlun, ps)
+    p = {k: v.data_ptr() for k, v in out.items()}
     with kernels.launch_on(device) as stream:
-        code = lib.andix_replay_rows(*args, stream)
-    kernels.check(code, "replay_rows")
+        kernels.check(lib.andix_replay_cold(*head, p["ws"], p["err"], stream),
+                      "replay_rows (pass 1, cold walks)")
+        kernels.check(lib.andix_replay_splice(
+            *head, p["ws"], p["counts"], p["tally"], p["splice"], p["err"],
+            stream), "replay_rows (pass 2, splice)")
     kernels.count_launch("replay", device)
-    return _replay_checked(counts, tally, err)
+    return _replay_checked(out, segments, REPLAY_TRAIL, splice)
 
 
 def replay_rows_cpu_twin(isa, rm, text, mlun, ps, lanes, exact_counts,
-                         chase, tiny: bool = False):
-    """The kernel's lane body (``replay_lane.cuh``) built for the host
-    with g++, one thread per lane.  ``tiny`` runs it with tiny windows (4
-    row entries, 8 diagonal pairs) instead of the kernel's.  An interval
-    reaching outside the text raises, as on the card."""
-    args, counts, tally, err = _replay_args(isa, rm, text, mlun, ps, lanes,
-                                            exact_counts, chase,
-                                            torch.device("cpu"))
-    kernels.cpu_twin().andix_replay_rows_cpu(*args, int(tiny))
-    return _replay_checked(counts, tally, err)
+                         chase, segments: int = 1, trail: int = REPLAY_TRAIL,
+                         tiny: bool = False, splice=None):
+    """The kernels' two passes (``replay_lane.cuh``) built for the host
+    with g++, one thread, at ``segments`` query segments a lane and a
+    trail of ``trail`` anchors.  ``tiny`` runs them with tiny windows (4
+    row entries, 8 diagonal pairs) instead of the kernels'.  ``splice`` as
+    for ``replay_rows``.  An interval reaching outside the text raises,
+    as on the card."""
+    lib = kernels.cpu_twin()
+    head, out = _replay_args(isa, rm, text, mlun, ps, lanes, exact_counts,
+                             chase, segments, trail,
+                             lib.andix_replay_seg_ints_cpu,
+                             torch.device("cpu"))
+    lib.andix_replay_rows_cpu(
+        *head, *(out[k].data_ptr() for k in ("ws", "counts", "tally",
+                                             "splice", "err")), int(tiny))
+    return _replay_checked(out, segments, trail, splice)
+
+
+def replay_equal_cpu_twin(text, start: int, length: int):
+    """The kernels' exact-mode equal count of ``text[start:start +
+    length]`` (uint8 CPU tensor) built for the host: int32 [16] cells, a
+    byte at least 'A' on the diagonal cell of ``(s >> 1) & 3``."""
+    _check("replay_equal_cpu_twin", "text", text, torch.uint8,
+           torch.device("cpu"))
+    out = torch.zeros(16, dtype=torch.int32)
+    sites = kernels.cpu_twin().andix_replay_equal_cpu(
+        text.data_ptr(), text.shape[0], start, length, out.data_ptr())
+    if sites != length:
+        raise RuntimeError("replay_equal_cpu_twin: the interval reaches "
+                           "outside the text")
+    return out
 
 
 def _sites(starts, lens):

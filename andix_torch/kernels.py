@@ -76,14 +76,16 @@ _PLCP_ARGTYPES = [_P] * 3 + [_I] * 3 + [ctypes.c_int64] + [_I] * 2 + [_P] * 5
 # andix_range_min_build's (rmq.cu): values, Np, the six outputs, tg's rows;
 # the CUDA entry adds the stream, the host twin its tile-size switch
 _RMQ_ARGTYPES = [_P, ctypes.c_int64] + [_P] * 6 + [_I]
-# andix_replay_rows's (replay_lane.cuh, replay.cu): the walk's tables as
-# for the flat walk, the per-subject and per-query lane arrays and the
-# [Sg, G] query lengths, Sg, G, the exact flag and the chase, then the
-# counts, stats and error counter; the CUDA entry adds the stream, the
-# host twin its window-size switch
+# the head shared by the replay's entries (replay_lane.cuh, replay.cu):
+# the walk's tables as for the flat walk, the per-subject and per-query
+# lane arrays and the [Sg, G] query lengths, Sg, G, the segments K, the
+# trail M, the exact flag and the chase.  andix_replay_cold adds the
+# workspace, the error counter and the stream; andix_replay_splice the
+# workspace, the counts, stats, splice counters, the error counter and
+# the stream; the host twin (both passes) the same with its window-size
+# switch in place of the stream
 _REPLAY_ARGTYPES = ([_P, _P, ctypes.c_int64] + [_P] * 7 + [_I] * 3
-                    + [_P, _P, ctypes.c_int64] + [_P] * 6 + [_I] * 4
-                    + [_P] * 3)
+                    + [_P, _P, ctypes.c_int64] + [_P] * 6 + [_I] * 6)
 
 
 def reset_launches() -> None:
@@ -211,8 +213,12 @@ def _load_cuda():
     lib.andix_plcp_hybrid.restype = _I
     lib.andix_range_min_build.argtypes = _RMQ_ARGTYPES + [_P]
     lib.andix_range_min_build.restype = _I
-    lib.andix_replay_rows.argtypes = _REPLAY_ARGTYPES + [_P]
-    lib.andix_replay_rows.restype = _I
+    lib.andix_replay_cold.argtypes = _REPLAY_ARGTYPES + [_P] * 3
+    lib.andix_replay_cold.restype = _I
+    lib.andix_replay_splice.argtypes = _REPLAY_ARGTYPES + [_P] * 6
+    lib.andix_replay_splice.restype = _I
+    lib.andix_replay_seg_ints.argtypes = [_I]
+    lib.andix_replay_seg_ints.restype = _I
     lib.andix_set_device.argtypes = [_I]
     lib.andix_set_device.restype = _I
     lib.andix_cuda_error_string.argtypes = [_I]
@@ -262,6 +268,11 @@ def _load_cpu_twin():
     lib.andix_plcp_read_cpu.restype = None
     lib.andix_range_min_build_cpu.argtypes = _RMQ_ARGTYPES + [_I]
     lib.andix_range_min_build_cpu.restype = _I
-    lib.andix_replay_rows_cpu.argtypes = _REPLAY_ARGTYPES + [_I]
+    lib.andix_replay_rows_cpu.argtypes = _REPLAY_ARGTYPES + [_P] * 5 + [_I]
     lib.andix_replay_rows_cpu.restype = _I
+    lib.andix_replay_equal_cpu.argtypes = [_P, ctypes.c_int64,
+                                           ctypes.c_int64, _I, _P]
+    lib.andix_replay_equal_cpu.restype = _I
+    lib.andix_replay_seg_ints_cpu.argtypes = [_I]
+    lib.andix_replay_seg_ints_cpu.restype = _I
     return lib

@@ -5,7 +5,9 @@ events, for this checkout or another one.
 Run from the repository root, on a machine with a card:
 
     python3 bench_kernels.py [--tree DIR] [--reps 20]
-                             [--what all | a list of scan,walk,plcp,rmq]
+                             [--what all | a list of
+                                     scan,walk,plcp,rmq,replay]
+                             [--segments 1,8,16,32]
 
 ``--tree DIR`` imports ``andix_torch`` from DIR, a checkout of another
 commit (for example one unpacked with ``git archive``), so two commits
@@ -17,10 +19,17 @@ the 8 x 1 and 8 x 5 Mbp subject-index runs; ``plcp_lcp_hybrid`` over
 the padded joint texts of 8 x 1 and 8 x 5 Mbp and of the 8 x 1 Mbp
 clonal family, with every level row and cut to 14 rows; ``rmq.build``
 over the 8 x 1 and 8 x 5 Mbp joint LCPs (in a tree from before the
-range-min kernel, that is the torch build).  Each kernel is run once
-before its timed launches.  ``--split`` also prints the device time of
-each launch of one PLCP call, from torch.profiler.  Prints the card's name and power limit
-first, one line per measurement, and one JSON object last; exits
+range-min kernel, that is the torch build); the count-in-loop replay
+(``replay_rows``, with its default segments where the tree has them)
+over every lane of the 8 x 1 and 8 x 5 Mbp joint blocks, JC and LogDet,
+and with ``--segments`` (a tree with segmented replay lanes) again at
+each K listed: its counts and tallies held to the default K's, the
+call's ms, each pass's device ms and the splice counters
+(``chip_smoke.replay_passes``).  Each kernel is run once before its
+timed launches.  ``--split`` also
+prints the device time of each launch of one PLCP call, from
+torch.profiler.  Prints the card's name and power limit first, one line
+per measurement, and one JSON object last; exits
 non-zero without a card.
 """
 
@@ -56,12 +65,15 @@ def main(argv=None) -> int:
     ap.add_argument("--split", action="store_true",
                     help="also trace one PLCP call with torch.profiler and "
                     "print each of its launches' device time")
+    ap.add_argument("--segments", default="",
+                    help="comma-separated query segments K at which to "
+                    "time the replay too")
     ap.add_argument("--what", default="all",
                     help="all, or a comma-separated list of scan, walk, "
-                    "plcp, rmq")
+                    "plcp, rmq, replay")
     args = ap.parse_args(argv)
     what = set(args.what.split(","))
-    if not what <= {"all", "scan", "walk", "plcp", "rmq"}:
+    if not what <= {"all", "scan", "walk", "plcp", "rmq", "replay"}:
         ap.error(f"--what {args.what}")
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
@@ -123,30 +135,11 @@ def main(argv=None) -> int:
     if wants("plcp") or wants("rmq"):
         out.update(_plcp_rmq(cs, dev, args.reps, wants("plcp"),
                              wants("rmq"), args.split))
+    if wants("replay"):
+        segments = [int(k) for k in args.segments.split(",") if k]
+        out.update(_replay(cs, dev, max(1, args.reps // 4), segments))
     print(json.dumps(out), flush=True)
     return 0
-
-
-def _device_split(fn):
-    """{kernel name: device ms} of one call of ``fn`` under
-    torch.profiler (after a warm call)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("<")[0].strip().split("::")[-1]
-            out[name] = out.get(name, 0.0) + us / 1e3
-    return out
 
 
 def _plcp_rmq(cs, dev, reps, do_plcp, do_rmq, split=False):
@@ -174,7 +167,7 @@ def _plcp_rmq(cs, dev, reps, do_plcp, do_rmq, split=False):
                   f"{len(levels)} rows): {ms:.4f} ms", flush=True)
             out[f"plcp_lcp_hybrid_ms {label}"] = ms
             if split:
-                parts = _device_split(lambda: plcp.plcp_lcp_hybrid(*args))
+                parts = cs.device_split(lambda: plcp.plcp_lcp_hybrid(*args))
                 print(f"  device ms by launch: {json.dumps(parts)}",
                       flush=True)
         if do_rmq and "clonal" not in label:
@@ -183,6 +176,42 @@ def _plcp_rmq(cs, dev, reps, do_plcp, do_rmq, split=False):
                   flush=True)
             out[f"rmq_build_ms {label}"] = ms
         del sym, sa, levels, args, lcp
+        torch.cuda.empty_cache()
+    return out
+
+
+def _replay(cs, dev, reps, segments):
+    """The count-in-loop replay over every lane of chip_smoke's 8 x 1 and
+    8 x 5 Mbp joint blocks, JC and LogDet, with its counts' sum; then at
+    each K of ``segments``, held to the default call's counts and
+    tallies."""
+    from andix_torch.chain import replay_device as rd
+    from andix_torch.esa.backend import CHASE
+
+    out = {}
+    for length in (1_000_000, 5_000_000):
+        be, ctx, subjects, mlun, ps, lanes = cs._replay_block(
+            dev, cs.make_family(8, length))
+        label = f"8x{length // 1_000_000}Mbp"
+        for exact in (False, True):
+            args = (ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes, exact, CHASE)
+            counts, tally = rd.replay_rows(*args)
+            ms = cs.cuda_ms(lambda: rd.replay_rows(*args), reps)
+            mode = "LogDet" if exact else "JC"
+            print(f"replay {label} {mode}: {ms:.4f} ms; counts sum "
+                  f"{int(counts.long().sum())}, longest lane "
+                  f"{int(tally[..., 0].max())} probe steps", flush=True)
+            out[f"replay_ms {label} {mode}"] = ms
+            for k in segments:
+                got = rd.replay_rows(*args, segments=k)
+                if cs.max_abs_err(got, (counts, tally)):
+                    raise AssertionError(f"replay {label} {mode} K={k}: "
+                                         "counts or tallies moved")
+                timed = cs.replay_passes(args, reps, k)
+                print(f"  {label} {mode} at {cs._splice_text(*timed)}; == "
+                      "the default K's counts and tallies", flush=True)
+                out[f"replay_ms {label} {mode} K={k}"] = timed[0]
+        del be, ctx, subjects, mlun, ps, lanes, args
         torch.cuda.empty_cache()
     return out
 

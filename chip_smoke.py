@@ -59,8 +59,9 @@ line each; any failed phase raises and the script exits non-zero:
    family and of 8 x 1 Mbp (JC and LogDet) and of the small family's
    clonal copy (LogDet), exactly; the loop path's counts against the
    events path's at 8 x 1 and 8 x 5 Mbp (JC and LogDet) with the kernel's
-   times; the CLI at both sizes under
-   ``ANDIX_REPLAY=loop`` (phases 6 and 7's bytes, one replay launch and
+   times, each pass's, its query segments K and its splice counters, and
+   in JC the same counts at K = 1, 8, 16 and 32; the CLI at both sizes
+   under ``ANDIX_REPLAY=loop`` (phases 6 and 7's bytes, one replay launch and
    no walk launch, the loop phase beside the events run's walk and host
    count) and at 8 x 1 Mbp with ``ANDIX_EVENT_CAP=64`` (the buffer
    overflows and the replay kernel counts);
@@ -1002,6 +1003,57 @@ def _timed(fn):
     return out, t0.elapsed_time(t1)
 
 
+def device_split(fn, reps: int = 1) -> dict[str, float]:
+    """{kernel name: mean device ms a call} over ``reps`` calls of ``fn``
+    under torch.profiler (after a warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].strip().split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
+def replay_passes(args, reps, segments=None):
+    """The replay call ``rd.replay_rows(*args, segments=segments)`` timed
+    (after a warm call): mean ms a call over ``reps`` calls (CUDA
+    events), the mean device ms of each pass over ``reps`` more
+    (torch.profiler), and the splice counters of one more call."""
+    from andix_torch.chain import replay_device as rd
+
+    def call():
+        return rd.replay_rows(*args, segments=segments)
+
+    ms = cuda_ms(call, reps)
+    split = device_split(call, reps)
+    p1, p2 = (sum(v for k, v in split.items() if k.startswith(name))
+              for name in ("replay_cold", "replay_splice"))
+    if not p1 or not p2:
+        raise AssertionError(f"the profiler saw no replay pass: {split}")
+    splice = {}
+    rd.replay_rows(*args, segments=segments, splice=splice)
+    return ms, p1, p2, splice
+
+
+def _splice_text(ms, p1, p2, splice) -> str:
+    merges, fallbacks, steps = splice["lanes"].long().sum(dim=(0, 1)).tolist()
+    return (f"K={splice['segments']} M={splice['trail']}: kernel {ms:.4f} ms "
+            f"(pass 1 {p1:.4f} ms, pass 2 {p2:.4f} ms); {merges} merges, "
+            f"{fallbacks} fallbacks, {steps} repair steps")
+
+
 def _phase_seconds(phases, key) -> float:
     return sum(float(p.rsplit(": ", 1)[1].rstrip("s"))
                for p in phases if key in p)
@@ -1018,13 +1070,18 @@ def phase_replay(dev, tmp, card, events_runs):
     does not depend on the mode, so each block is walked once
     (``replay_walk_plain``) and counted once a mode
     (``replay_count_plain``); the plain time is the two together.  Timed
-    there (kernel: mean of 5 launches; plain: once) with the byte bound
-    from the plain run's counts.  At 8 x 1 and 8 x 5 Mbp the block's
-    counts through the loop path (the kernel) against the events path's
-    (the flat walk and the host count), JC and LogDet; at 8 x 5 Mbp the
-    kernel timed with the floor bound from its own tallies (the plain
-    version is not run there: its longest lane takes 196,582 lock-step
-    steps).  Then the CLI at 8 x 1 and 8 x 5 Mbp under
+    there (kernel: mean of 5 calls, and of each of its two passes over 5
+    more; plain: once) with the byte bound from the plain run's counts,
+    and printed with the call's segments K and its splice counters
+    (merges, fallbacks, repair steps; ``replay_passes``).  At 8 x 50 kbp
+    the rule takes K = 1, at 8 x 1 Mbp it segments.  At 8 x 1 and 8 x 5
+    Mbp the block's counts through the loop path (the kernel) against the
+    events path's (the flat walk and the host count), JC and LogDet, and
+    in JC the kernel at K = 1 (the unsegmented schedule), 8, 16 and 32,
+    each equal to the default K's counts and tallies and timed; at 8 x 5
+    Mbp the kernel timed with the floor bound from its own tallies (the
+    plain version is not run there: its longest lane takes 196,582
+    lock-step steps).  Then the CLI at 8 x 1 and 8 x 5 Mbp under
     ``ANDIX_REPLAY=loop``: the bytes of the default (events) runs
     ``events_runs`` (label, paths, PHYLIP, (wall, phases)), the replay
     launched once and the walk never, the loop phase beside the events
@@ -1058,17 +1115,31 @@ def phase_replay(dev, tmp, card, events_runs):
                                      f"counts != events counts ({e})")
             args = (ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes,
                     model == Model.LOGDET, CHASE)
-            _, tally = rd.replay_rows(*args)
-            ms = cuda_ms(lambda: rd.replay_rows(*args), 5)
-            nbytes, bound_ms = replay_bound(lanes, tally)
-            t = tally.long()
+            want = rd.replay_rows(*args)
+            timed = replay_passes(args, 5)
+            nbytes, bound_ms = replay_bound(lanes, want[1])
+            t = want[1].long()
             say(f"replay {label} {model.value}: loop counts == events counts "
-                f"({len(a[0])} pairs); kernel {ms:.4f} ms; probe steps: "
+                f"({len(a[0])} pairs); {_splice_text(*timed)}; probe steps: "
                 f"longest lane {int(t[..., 0].max())}, all "
                 f"{int(t[..., 0].sum())}; gap sites {int(t[..., 1].sum())}, "
                 f"exact equal sites {int(t[..., 2].sum())}; floor bound "
                 f"{nbytes} B -> {bound_ms:.6f} ms "
-                f"({100 * bound_ms / ms:.3f}% of the kernel)")
+                f"({100 * bound_ms / timed[0]:.3f}% of the kernel)")
+            if model != Model.JC:
+                continue
+            # the segments: the result must not move; K = 1 is the
+            # unsegmented schedule of PR 9's kernel through the two passes
+            for k in (1, 8, 16, 32):
+                got = rd.replay_rows(*args, segments=k)
+                e = max_abs_err(got, want)
+                if e:
+                    raise AssertionError(f"replay {label} K={k}: counts or "
+                                         f"tallies moved ({e})")
+                timed_k = replay_passes(args, 5, k)
+                say(f"  {label} JC at {_splice_text(*timed_k)} "
+                    f"(the bound {100 * bound_ms / timed_k[0]:.3f}% of it); "
+                    "== the default K's counts and tallies")
 
     for label, fam, modes in (
             ("8x50kbp", small, (False, True)),
@@ -1092,14 +1163,16 @@ def phase_replay(dev, tmp, card, events_runs):
             if e:
                 raise AssertionError(f"replay {label} exact={exact}: kernel "
                                      f"!= plain, max_abs_err {e}")
-            ms = cuda_ms(lambda: rd.replay_rows(*args, exact, CHASE), 5)
+            timed = replay_passes(args + (exact, CHASE), 5)
+            ms = timed[0]
             nbytes, bound_ms = replay_bound(lanes, ref[1], counts)
             floor = replay_bound(lanes, ref[1])[0]
             say(f"replay {label} {'exact (LogDet)' if exact else 'fast (JC)'}"
-                f": kernel == plain (counts and tallies), kernel {ms:.4f} ms,"
-                f" plain {p_ms:.1f} ms (walk {w_ms:.1f} ms, count "
-                f"{c_ms:.1f} ms); {int(ref[1][..., 0].max())} probe steps "
-                f"in the longest lane")
+                f": kernel == plain (counts and tallies), "
+                f"{_splice_text(*timed)}, plain {p_ms:.1f} ms (walk "
+                f"{w_ms:.1f} ms, count {c_ms:.1f} ms); "
+                f"{int(ref[1][..., 0].max())} probe steps in the longest "
+                "lane")
             say(f"  counts {json.dumps(counts)}; {nbytes} B to move -> bound "
                 f"{bound_ms:.6f} ms ({100 * bound_ms / ms:.3f}% of the "
                 f"kernel); the 4-B-a-probe floor {floor} B")
@@ -1119,6 +1192,7 @@ def phase_replay(dev, tmp, card, events_runs):
         if out != out_ev:
             raise AssertionError(f"{label} ANDIX_REPLAY=loop PHYLIP != the "
                                  f"events run's:\n{out}\n{out_ev}")
+        # one replay call (its two passes) for the one subject group
         if launches["replay"] != 1 or launches["chain_walk_flat"] or min(
                 launches["flag_scan"], launches["plcp_lcp_hybrid"],
                 launches["range_min_build"]) <= 0:

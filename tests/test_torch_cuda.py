@@ -9,6 +9,8 @@ the card and no JAX:
 (the CPU tests hold the plain versions, and the kernels' host twins, to
 the JAX package)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -215,6 +217,47 @@ def test_replay_kernel_equals_plain(cuda, clonal, exact):
                                exact, 4)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert int(got[0].sum()) > 0
+
+
+@pytest.mark.parametrize("clonal", [False, True])
+@pytest.mark.parametrize("segments", [1, 3, 8, 64])
+def test_replay_kernel_splice_equals_twin(cuda, clonal, segments):
+    """The two passes at K query segments a lane: counts and tallies equal
+    the plain (unsegmented) version's, and counts, tallies and each
+    lane's merges, fallbacks and repair steps equal the host twin's at
+    the same K."""
+    seqs = _family()
+    if clonal:
+        seqs[1] = Seq(seqs[0].data.copy(), "g1")
+    subjects = [subject_init(s, 0.025) for s in seqs]
+    be = TorchBackend(cuda)
+    ctx = be.prepare_block(joint.build_block(
+        {i: subjects[i].rs for i in range(3)}, {}))
+    segs, starts, rs_lens, thr, q_len2d = be._group_tables(
+        ctx, [0, 1, 2], dict(enumerate(subjects)))
+    mlun, ps = rd.group_subject_tables(ctx.sa, ctx.lcp, ctx.segid, ctx.tq,
+                                       segs, starts)
+    lanes = rd.replay_lanes(starts, rs_lens, thr, ctx.q_base_h,
+                            ctx.q_start_h, q_len2d, cuda)
+    assert rd.replay_segments(lanes["q_len"], 132) == 1  # 3 kbp queries
+    host = [x.cpu() for x in (ctx.isa, ctx.text, mlun, ps)]
+    rm_h = rmq.RangeMin(*(getattr(ctx.rm, f.name).cpu()
+                          for f in dataclasses.fields(rmq.RangeMin)))
+    lanes_h = {k: v.cpu() for k, v in lanes.items()}
+    for exact in (False, True):
+        splice, twin_splice = {}, {}
+        got = rd.replay_rows(ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes,
+                             exact, 4, segments=segments, splice=splice)
+        twin = rd.replay_rows_cpu_twin(host[0], rm_h, host[1], host[2],
+                                       host[3], lanes_h, exact, 4,
+                                       segments=segments,
+                                       splice=twin_splice)
+        ref = rd.replay_rows_plain(ctx.isa, ctx.rm, ctx.text, mlun, ps,
+                                   lanes, exact, 4)
+        for a, b, c in zip(got, twin, ref):
+            assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+        assert splice["segments"] == segments
+        assert torch.equal(splice["lanes"].cpu(), twin_splice["lanes"])
 
 
 def _sx_group(device, k, cache_k):

@@ -1,8 +1,10 @@
 """andix_torch's count-in-loop replay (``replay_rows``) against andix's
 ``replay_rows_device``: the plain lock-step version (what the CPU path
-runs) and the CUDA kernel's lane body built for the host with g++ (the
-"CPU twin"), at the kernel's window sizes and at tiny ones, on the same
-block tables; then ``calculate_matrix`` with ``ANDIX_REPLAY=loop`` on the
+runs) and the CUDA kernels' two passes built for the host with g++ (the
+"CPU twin"), at the kernels' window sizes and at tiny ones, on the same
+block tables, unsegmented and with the lanes cut into K query segments
+spliced with a trail of M anchors (K in 1, 2, 3, 8, 64; M in 1, 2, 12);
+then ``calculate_matrix`` with ``ANDIX_REPLAY=loop`` on the
 CPU against andix's ``ANDIX_REPLAY=loop`` on the cases of
 tests/test_replay_device.py and every model, and the sharded grid with
 ``ANDIX_SHARDED_REPLAY=loop``.  Every comparison is exact: the counts
@@ -23,7 +25,7 @@ from andix.chain import replay_device as jrd
 from andix.esa import joint
 from andix.esa.backend_jax import JaxBackend, device_text
 from andix.runtime import Context as JContext, Model as JModel
-from andix.sequence import Seq as JSeq, join as jjoin, subject_init
+from andix.sequence import Seq as JSeq, join as jjoin, revcomp, subject_init
 from andix_torch import pipeline
 from andix_torch.chain import replay_device as rd
 from andix_torch.esa.backend import BlockContext
@@ -78,22 +80,55 @@ def _block(genomes):
     return ctx, tables, lanes, ref
 
 
+def border_pair(seed=9):
+    """A subject S and a query that holds the end of S's reverse
+    complement, one base in place of the strand separator, then the start
+    of S: the subject string is revcomp(S) + '#' + S, so the query's two
+    parts are two unique anchors on one diagonal, one on each side of the
+    RS border rl / 2.  Each is shorter than twice the threshold, so the
+    border test of the pairing (src/process.c:160-189) decides whether
+    either counts."""
+    s = NUCL[np.random.default_rng(seed).integers(0, 4, 2000)]
+    thr = subject_init(JSeq(s, "s"), JContext().anchor_p_value).threshold
+    part = 2 * thr - 3
+    q = np.concatenate([revcomp(s)[-part:], NUCL[:1], s[:part]])
+    return [s, q]
+
+
 @pytest.fixture(scope="module")
 def blocks():
     """A 4 x 700 family at rates 0.004, 0.05 and 0.2 (andix's
-    test_events_path_equals_loop_path), and a 3 x 600 block with a clonal
-    pair and an unrelated genome."""
+    test_events_path_equals_loop_path); a 3 x 600 block with a clonal
+    pair and an unrelated genome; an unrelated (anchor-free) pair; a
+    clonal copy; joined contigs; a near-clonal 2000 bp pair, whose
+    anchors are longer than the segments of K = 64, beside a 40 bp genome
+    shorter than K; and the border pair."""
     r = np.random.default_rng(21)
     base = NUCL[r.integers(0, 4, 700)]
     family = [base] + [_mutate(r, base, x) for x in (0.004, 0.05, 0.2)]
     other = NUCL[r.integers(0, 4, 600)]
+    clonal = [other, other.copy(), NUCL[r.integers(0, 4, 600)]]
+    c1, c2 = NUCL[r.integers(0, 4, 300)], NUCL[r.integers(0, 4, 250)]
+    long = NUCL[r.integers(0, 4, 2000)]
     return {"family": _block(family),
-            "clonal": _block([other, other.copy(),
-                              NUCL[r.integers(0, 4, 600)]])}
+            "clonal": _block(clonal),
+            "unrelated": _block([NUCL[r.integers(0, 4, 500)],
+                                 NUCL[r.integers(0, 4, 400)]]),
+            "identical": _block([other, other.copy()]),
+            "joined": _block([jjoin([c1, c2]),
+                              jjoin([_mutate(r, c1, 0.04),
+                                     _mutate(r, c2, 0.04)])]),
+            "long_anchors": _block([long, _mutate(r, long, 0.002),
+                                    long[1000:1040].copy()]),
+            "border": _block(border_pair())}
 
 
 CASES = [(name, exact) for name in ("family", "clonal")
          for exact in (False, True)]
+SPLICE_CASES = CASES + [
+    (name, exact) for name in ("unrelated", "identical", "joined",
+                               "long_anchors", "border")
+    for exact in (False, True)]
 
 
 @pytest.mark.parametrize("name,exact", CASES)
@@ -127,6 +162,140 @@ def test_cpu_twin_of_kernel_equals_plain(blocks, name, exact, tiny):
         want = rd.replay_rows_plain(*args, chase)
         assert (got[0].numpy() == ref[exact]).all()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.fixture(scope="module")
+def plain_runs(blocks):
+    """replay_rows_plain's (counts, tally) of each case, computed once."""
+    memo = {}
+
+    def run(name, exact):
+        if (name, exact) not in memo:
+            ctx, (mlun, ps), lanes, _ = blocks[name]
+            memo[name, exact] = rd.replay_rows_plain(
+                ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes, exact, 4)
+        return memo[name, exact]
+
+    return run
+
+
+def _segments(lanes, k):
+    """Non-empty query segments of every lane (segmented.plan_segments)."""
+    from andix_torch.chain import segmented
+
+    return sum(len(segmented.plan_segments(int(q), k))
+               for q in lanes["q_len"].reshape(-1).tolist() if q > 0)
+
+
+@pytest.mark.parametrize("segments", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("name,exact", SPLICE_CASES)
+def test_cpu_twin_splice_equals_plain(blocks, plain_runs, name, exact,
+                                      segments):
+    """The two passes with every lane cut into K query segments and a
+    trail of M anchors: counts and per-lane tallies (the unsegmented
+    walk's probe steps and sites) equal the plain version's and the
+    counts andix's, whatever K, M and the window sizes."""
+    _need_gxx()
+    ctx, (mlun, ps), lanes, ref = blocks[name]
+    want = plain_runs(name, exact)
+    assert (want[0].numpy() == ref[exact]).all()
+    args = (ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes, exact, 4)
+    spliced = _segments(lanes, segments) - int((lanes["q_len"] > 0).sum())
+    for trail in (1, 2, 12):
+        for tiny in (False, True):
+            splice = {}
+            got = rd.replay_rows_cpu_twin(*args, segments=segments,
+                                          trail=trail, tiny=tiny,
+                                          splice=splice)
+            assert torch.equal(got[0], want[0]), (trail, tiny)
+            assert torch.equal(got[1], want[1]), (trail, tiny)
+            assert splice["segments"] == segments
+            merges, fallbacks, steps = splice["lanes"].sum(dim=(0, 1))
+            # each segment after the first merges, falls back or was
+            # passed over by the true walk
+            assert int(merges) + int(fallbacks) <= spliced
+            assert int(steps) >= int(fallbacks)
+            if segments == 1:
+                assert not splice["lanes"].any()
+
+
+@pytest.mark.parametrize("name", ["family", "long_anchors"])
+def test_trail_of_one_forces_fallbacks(blocks, plain_runs, name):
+    """With a trail of one anchor a repair merges only on the cold walk's
+    first anchor, which a segment that starts inside an anchor records
+    as that anchor's tail: such segments fall back and walk to their end,
+    and the counts stay exact.  A longer trail merges them."""
+    _need_gxx()
+    ctx, (mlun, ps), lanes, _ = blocks[name]
+    args = (ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes, True, 4)
+    want = plain_runs(name, True)
+    stats = {}
+    for trail in (1, 12):
+        splice = {}
+        got = rd.replay_rows_cpu_twin(*args, segments=8, trail=trail,
+                                      splice=splice)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        stats[trail] = splice["lanes"].sum(dim=(0, 1)).tolist()
+    assert stats[1][1] > 0, stats
+    assert stats[12][0] > stats[1][0] and stats[12][1] < stats[1][1], stats
+
+
+def test_border_pair_is_not_paired(blocks, plain_runs):
+    """The border pair's two anchors lie on one diagonal across the RS
+    border, so andix neither pairs them nor counts them: the query's
+    lane against S counts nothing, and a replay that dropped the border
+    test would count both anchors' sites (the twin, whatever K)."""
+    _need_gxx()
+    ctx, (mlun, ps), lanes, ref = blocks["border"]
+    assert ref[False][0, 1].sum() == 0 and ref[True][0, 1].sum() == 0
+    for exact in (False, True):
+        want = plain_runs("border", exact)
+        assert want[0][0, 1].sum() == 0 and want[1][0, 1, 0] > 0
+        for segments in (1, 4, 64):
+            got = rd.replay_rows_cpu_twin(ctx.isa, ctx.rm, ctx.text, mlun,
+                                          ps, lanes, exact, 4,
+                                          segments=segments)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+def test_segments_rule():
+    """K = 1 below 2^17 symbols; above, enough segments for 24 warps an
+    SM over the live lanes, each segment at least 2^15 symbols."""
+    def k(shape, qlen, sms=132):
+        return rd.replay_segments(torch.full(shape, qlen, dtype=torch.int32),
+                                  sms)
+
+    assert k((8, 8), 50_000) == 1 and k((8, 8), (1 << 17) - 1) == 1
+    assert k((8, 8), 5_000_000) == 50  # 132 * 24 / 64 lanes
+    assert k((8, 8), 1_000_000) == 30  # 2^15 symbols a segment
+    assert k((22, 22), 5_000_000) == 7
+    assert k((0, 8), 5_000_000) == 1
+    q = torch.zeros((8, 8), dtype=torch.int32)
+    q[0, 1] = 5_000_000  # one live lane
+    assert rd.replay_segments(q, 132) == 152
+
+
+def test_exact_equal_count_of_every_byte():
+    """The kernels' exact equal count, which reads 16-byte chunks and
+    counts four bytes a word, against the byte rule of andix's
+    model_count_equal (a byte at least 'A' on the diagonal cell of
+    ``(s >> 1) & 3``) over every byte value, with intervals that start
+    and end at every offset from a 16-byte boundary."""
+    _need_gxx()
+    r = np.random.default_rng(4)
+    text = np.concatenate([np.arange(256, dtype=np.uint8),
+                           r.integers(0, 256, 1000).astype(np.uint8),
+                           NUCL[r.integers(0, 4, 600)]])
+    cell = np.array([0, 5, 15, 10])[(text >> 1) & 3]
+    t = torch.from_numpy(text)
+    base = t.data_ptr() % 16
+    for start in list(range(0, 40)) + [256, 1256]:
+        for length in (0, 1, 15, 16, 17, 33, 64, 255, 600):
+            got = rd.replay_equal_cpu_twin(t, start, length)
+            part = slice(start, start + length)
+            want = np.bincount(cell[part][text[part] >= 65], minlength=16)
+            assert (got.numpy() == want).all(), (start, length, base)
 
 
 def test_cpu_twin_refuses_an_interval_outside_the_text(blocks):
@@ -210,6 +379,46 @@ def test_loop_repetitive(loop_replay):
     tail = np.frombuffer(b"GGCCTTAAGC" * 30, np.uint8).copy()
     loop_replay([np.concatenate([rep, tail]),
                  np.concatenate([rep[7:], tail])], "LogDet")
+
+
+@pytest.mark.parametrize("model", ["JC", "LogDet"])
+def test_border_pair_loop_and_events_equal_andix(monkeypatch, model):
+    """The border pair through calculate_matrix on the joint schedule:
+    the count-in-loop path (``ANDIX_REPLAY=loop``) and the default events
+    path (the walk and the host count) both give andix's grid, in which
+    the query's lane against S counts nothing."""
+    monkeypatch.setenv("ANDIX_INDEX", "joint")
+    monkeypatch.setenv("ANDIX_SHARDED", "0")
+    from andix_torch.esa import backend
+
+    ran = []
+    replay, walk = (backend.replay_rows,
+                    backend.segmented.segmented_group_anchors)
+
+    def loop(*a, **kw):
+        ran.append("loop")
+        return replay(*a, **kw)
+
+    def events(*a, **kw):
+        ran.append("events")
+        return walk(*a, **kw)
+
+    monkeypatch.setattr(backend, "replay_rows", loop)
+    monkeypatch.setattr(backend.segmented, "segmented_group_anchors", events)
+    genomes = border_pair()
+    names = ["g0", "g1"]
+    ref = _grid(jpipeline.calculate_matrix(
+        [JSeq(d, nm) for nm, d in zip(names, genomes)],
+        JContext(model=JModel(model)), backend=JaxBackend()), 2)
+    assert ref[0, 1].sum() == 0
+    for mode in ("loop", "events"):
+        monkeypatch.setenv("ANDIX_REPLAY", mode)
+        ran.clear()
+        got = pipeline.calculate_matrix(
+            [Seq(d, nm) for nm, d in zip(names, genomes)],
+            Context(model=Model(model)), [CPU])
+        assert set(ran) == {mode}
+        assert (_grid(got, 2) == ref).all(), mode
 
 
 @pytest.mark.parametrize("model", ["JC", "ANI"])

@@ -4,6 +4,12 @@ Run from the repository root, on a machine with a card:
 
     python3 trace_torch.py [--genomes 8] [--length 5000000]
                            [--index joint|subject|auto] [--runs 2]
+                           [--replay events|loop] [--tree DIR]
+
+``--replay loop`` traces the count-in-loop path (``ANDIX_REPLAY=loop``);
+``--tree DIR`` imports ``andix_torch`` from DIR, a checkout of another
+commit (for example one unpacked with ``git archive``), so two commits
+can be traced in one call on one card.
 
 It writes the synthetic family of ``chip_smoke.make_family`` to a
 temporary directory, runs ``andix_torch.cli.main --backend cuda -m JC``
@@ -34,7 +40,8 @@ import chip_smoke
 OURS = ("chain_walk_flat_kernel", "walk_sx", "flag_scan", "finals_kernel",
         "prefix_kernel", "seeded_kernel", "pack_kernel", "samples_kernel",
         "settle_kernel", "fill_kernel", "fine_kernel", "t8_kernel",
-        "tg_kernel")
+        "tg_kernel", "replay_rows_kernel", "replay_cold_kernel",
+        "replay_splice_kernel")
 
 
 def _device_items(prof):
@@ -61,7 +68,16 @@ def main(argv=None) -> int:
     ap.add_argument("--length", type=int, default=5_000_000)
     ap.add_argument("--index", default="joint")
     ap.add_argument("--runs", type=int, default=2)
+    ap.add_argument("--replay", default="events", choices=("events", "loop"))
+    ap.add_argument("--tree", default=None)
     args = ap.parse_args(argv)
+    if args.tree:
+        tree = os.path.abspath(args.tree)
+        sys.path.insert(0, tree)
+        import andix_torch
+
+        if not os.path.abspath(andix_torch.__file__).startswith(tree + os.sep):
+            raise RuntimeError(f"andix_torch came from {andix_torch.__file__}")
     if not torch.cuda.is_available():
         print("trace_torch: no CUDA device", file=sys.stderr)
         return 2
@@ -73,8 +89,11 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     from torch.profiler import ProfilerActivity, profile
 
-    label = f"{args.genomes}x{args.length} ANDIX_INDEX={args.index}"
+    label = (f"{args.genomes}x{args.length} ANDIX_INDEX={args.index} "
+             f"ANDIX_REPLAY={args.replay}"
+             + (f" tree {args.tree}" if args.tree else ""))
     os.environ["ANDIX_INDEX"] = args.index
+    os.environ["ANDIX_REPLAY"] = args.replay
     with tempfile.TemporaryDirectory() as tmp:
         paths = chip_smoke.write_fasta(
             tmp, chip_smoke.make_family(args.genomes, args.length))
