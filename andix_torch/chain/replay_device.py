@@ -8,7 +8,10 @@
   into ``[Sg, QB]`` tables.
 * ``chain_walk_flat``: the segmented schedule's resumable walk over a
   flat list of lanes, called by the host loop in ``chain.segmented`` (a
-  copy of ``andix.chain.segmented``).  On CUDA tensors it launches the
+  copy of ``andix.chain.segmented``) and, one lane a (subject, query)
+  pair walked to its end into one event buffer, by
+  ``chain_anchors_device`` (``andix``'s unsegmented events walk).  On
+  CUDA tensors it launches the
   hand-written kernel (``csrc/chain_walk.cu``, one warp per lane, which
   compares the text bytes along the diagonal for lucky anchors); on CPU
   tensors it runs ``chain_walk_flat_plain``, the lock-step loop of the JAX
@@ -91,11 +94,14 @@ def chain_walk_flat(isa, rm, text, mlun, ps, lanes: dict, max_iters: int,
                                  max_events, ecap, chase, unroll)
 
 
-def fetch_walk(out):
+def fetch_walk(out, events=None):
     """Either walk's outputs -> the (ev [4, cnt] lane/q/s/len, state [4, Lb]
     pos/lq/ls/ll, fin, iters, ovf) tuple the segmented driver consumes:
     one readback of the exit state with (ev_cnt, ovf, iters) riding along,
-    then the events (none after an overflow)."""
+    then the events (none after an overflow): ``events(ev4, cnt, lb)``
+    when given (the four buffers, the event count, the lane count; it
+    returns the [4, cnt] array), else the first ``cnt`` of each buffer as
+    they are."""
     (ev_lane, ev_q, ev_s, ev_len, ev_cnt, ovf, iters,
      pos, lq, ls, ll, fin) = out
     lb = pos.shape[0]
@@ -108,8 +114,11 @@ def fetch_walk(out):
     if ovf_h:
         return (np.zeros((4, 0), np.int32), state_h[:4],
                 state_h[4].astype(bool), iters_h, True)
-    ev = torch.stack([ev_lane[:cnt], ev_q[:cnt], ev_s[:cnt],
-                      ev_len[:cnt]]).cpu().numpy()
+    ev4 = (ev_lane, ev_q, ev_s, ev_len)
+    if events is not None:
+        ev = events(ev4, cnt, lb)
+    else:
+        ev = torch.stack([x[:cnt] for x in ev4]).cpu().numpy()
     return ev, state_h[:4], state_h[4].astype(bool), iters_h, False
 
 
@@ -408,6 +417,71 @@ def chain_walk_flat_plain(isa, rm, text, mlun, ps, lanes, max_iters,
     return (buf[0], buf[1], buf[2], buf[3], ev_cnt, ev_cnt > ecap,
             torch.tensor(it * unroll, dtype=torch.int32), pos, lq, ls, ll,
             fin)
+
+
+# no iteration or per-lane event cap: a walk runs every lane to its end
+UNCAPPED = (1 << 31) - 1
+
+
+def anchor_lanes(subj_start, rs_len, threshold, q_base, q_start, q_len2d,
+                 device) -> dict:
+    """``chain_walk_flat``'s lanes for a group's unsegmented walk: lane
+    ``s * G + g`` is subject row s against query g, from the query's start
+    (entry state 0) to its end.  ``subj_start``, ``rs_len`` and
+    ``threshold`` are per subject row [Sg], ``q_base`` and ``q_start``
+    per query [G], ``q_len2d`` [Sg, G] (0 disables a lane); numpy arrays
+    or int32 tensors."""
+
+    def dev(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+        return x.to(device, torch.int32)
+
+    q_len2d = dev(q_len2d)
+    sg, g = q_len2d.shape
+    per_row = [dev(x).reshape(sg, 1).expand(sg, g)
+               for x in (subj_start, rs_len, threshold)]
+    per_query = [dev(x).reshape(1, g).expand(sg, g) for x in (q_base,
+                                                             q_start)]
+    rows = torch.arange(sg, dtype=torch.int32, device=device)
+    zero = torch.zeros(sg * g, dtype=torch.int32, device=device)
+    vals = ([rows.reshape(sg, 1).expand(sg, g)] + per_query + per_row
+            + [q_len2d])
+    lanes = {name: v.reshape(-1).contiguous()
+             for name, v in zip(LANE_FIELDS[:7], vals)}
+    lanes.update({name: zero for name in LANE_FIELDS[7:]})
+    return lanes
+
+
+def chain_anchors_device(isa, rm, text, mlun, ps, subj_start, rs_len,
+                         threshold, q_base, q_start, q_len2d, ecap: int,
+                         chase: int = 4, unroll: int = 4):
+    """The unsegmented anchor-event walk of a subject group (``andix``'s
+    ``chain_anchors_device``): every (subject, query) lane of
+    ``anchor_lanes`` walked to its end in one ``chain_walk_flat``
+    dispatch with no iteration cap, every event into one buffer of
+    ``ecap`` slots.  Returns (ev_lane, ev_q, ev_s, ev_len — int32[ecap]
+    valid up to ev_cnt, each lane's events in chain order; ev_cnt; ovf =
+    ev_cnt > ecap over the whole walk; iterations, the walk's own)."""
+    lanes = anchor_lanes(subj_start, rs_len, threshold, q_base, q_start,
+                         q_len2d, mlun.device)
+    out = chain_walk_flat(isa, rm, text, mlun, ps, lanes, UNCAPPED,
+                          UNCAPPED, ecap, chase, unroll)
+    return out[:7]
+
+
+def subject_group_anchors_device(sa, lcp, segid, tq, isa, rm, text,
+                                 subj_segs, subj_starts, rs_lens,
+                                 thresholds, q_base, q_start, q_len2d,
+                                 ecap: int, chase: int = 4, unroll: int = 4):
+    """A group's ``[Sg, QB]`` subject tables, then its unsegmented
+    anchor-event walk (``andix``'s ``subject_group_anchors_device``); the
+    same tuple as ``chain_anchors_device``."""
+    mlun, ps = group_subject_tables(sa, lcp, segid, tq, subj_segs,
+                                    subj_starts)
+    return chain_anchors_device(isa, rm, text, mlun, ps, subj_starts,
+                                rs_lens, thresholds, q_base, q_start,
+                                q_len2d, ecap, chase, unroll)
 
 
 # the count-in-loop replay's lanes: per subject row (int32 [Sg]) its text

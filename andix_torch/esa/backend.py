@@ -12,10 +12,12 @@ fit; then segment ids, inverse SA, the query blob's SA slots and the
 range-min structure.  Per subject group
 (``subject_group_counts``): ``[Sg, QB]`` match-statistics tables (two
 flag scans per subject), the
-segmented chain walk (``chain.segmented`` driving ``chain_walk_flat``),
-and the 16-cell counts from the anchor events on the host; or, under
-``ANDIX_REPLAY=loop`` and when the event buffer overflows, the
-count-in-loop replay (``replay_rows``), which counts on the device.
+segmented chain walk (``chain.segmented`` driving ``chain_walk_flat``)
+when queries are cut into K > 1 segments, else the unsegmented walk
+(``chain_anchors_device``), and the 16-cell counts from the anchor
+events on the host; or, under ``ANDIX_REPLAY=loop`` and when the
+unsegmented walk's event buffer overflows, the count-in-loop replay
+(``replay_rows``), which counts on the device.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ import torch
 from ..chain import events as chain_events
 from ..chain import segmented
 from ..chain.replay_device import (
-    LANE_FIELDS, chain_walk_flat, fetch_walk, group_subject_tables,
-    replay_lanes, replay_rows,
+    LANE_FIELDS, chain_anchors_device, chain_walk_flat, fetch_walk,
+    group_subject_tables, replay_lanes, replay_rows,
 )
 from .. import native
 from ..device import memory_budget
@@ -368,12 +370,13 @@ class TorchBackend:
                              subjects, model_kind, replay: str | None = None):
         """{subject: {query: CountMatrix}} for one subject group, by
         ``andix``'s order (backend_jax.py:576-593): with ``replay``
-        ``events`` (the default; ``None`` reads ``ANDIX_REPLAY``) the
-        segmented walk and host counting from its anchor events, the
-        unsegmented walk where the segments do not converge or overflow
-        their event buffer, and the count-in-loop replay where the
-        unsegmented walk overflows too; with any other value (``loop``)
-        the count-in-loop replay alone."""
+        ``events`` (the default; ``None`` reads ``ANDIX_REPLAY``) host
+        counting from the anchor events of the segmented walk when it
+        cuts queries into K > 1 segments, of the unsegmented walk
+        (``chain_anchors_device``, one event buffer) when K = 1 or the
+        segments do not converge or overflow a dispatch's buffer, and the
+        count-in-loop replay where the unsegmented walk overflows too;
+        with any other value (``loop``) the count-in-loop replay alone."""
         dev = self.device
         replay = replay or os.environ.get("ANDIX_REPLAY", "events")
         tables = self._group_tables(ctx, subject_genomes, subjects)
@@ -405,9 +408,10 @@ class TorchBackend:
 
     def _events_counts(self, ctx, subject_genomes, subjects, model_kind,
                        tables, mlun, ps, t0):
-        """[Sg, Gp, 16] counts from the segmented walk's anchor events and
-        the host count, or None after the unsegmented walk's event
-        overflow; and the phase clock."""
+        """[Sg, Gp, 16] counts from the anchor events (the segmented walk
+        at K > 1, else or after it fails the unsegmented walk) and the
+        host count, or None after the unsegmented walk's event overflow;
+        and the phase clock."""
         dev = self.device
         _, starts, rs_lens, thresholds, q_len2d = tables
         sg, gp = q_len2d.shape
@@ -416,36 +420,29 @@ class TorchBackend:
                                   str(max(1 << 16, qb // 2))))
 
         def walk(arr, chunk_iters, maxev):
-            nonlocal overflowed
             lanes = {name: torch.from_numpy(arr[name]).to(dev)
                      for name in LANE_FIELDS}
-            res = fetch_walk(chain_walk_flat(ctx.isa, ctx.rm, ctx.text, mlun,
-                                             ps, lanes, chunk_iters, maxev,
-                                             ecap, CHASE, UNROLL))
-            overflowed |= res[4]
-            return res
+            return fetch_walk(chain_walk_flat(ctx.isa, ctx.rm, ctx.text,
+                                              mlun, ps, lanes, chunk_iters,
+                                              maxev, ecap, CHASE, UNROLL))
 
         def prof_msg(msg):
             nonlocal t0
             t0 = prof(msg, t0, dev)
 
         seg_k = self.chain_segments(ctx)
-        while True:
-            overflowed = False
+        res = None
+        if seg_k > 1:
             res = segmented.segmented_group_anchors(
                 walk, sg, gp, qb, starts, rs_lens, thresholds,
                 ctx.q_base_h, ctx.q_start_h, q_len2d, seg_k, ecap,
                 prof_msg if os.environ.get("ANDIX_PROF_FILE") else None,
             )
-            if res is not None:
-                break
-            if seg_k == 1:
-                if overflowed:
-                    break
-                raise RuntimeError("unsegmented chain walk returned no "
-                                   "result without an event overflow")
-            # the segments did not converge or overflowed: unsegmented walk
-            seg_k = 1
+        if res is None:
+            # K = 1, or the segments did not converge or overflowed: the
+            # unsegmented walk, every event into one buffer
+            res, t0 = self._unsegmented_events(ctx, tables, mlun, ps, ecap,
+                                               t0)
         if res is None:
             t0 = prof(f"event buffer of {ecap} overflowed: to the "
                       "count-in-loop replay", t0, dev)
@@ -460,6 +457,25 @@ class TorchBackend:
         )
         t0 = prof(f"host count from {ev_q.shape[0]} events", t0, dev)
         return counts_h, t0
+
+    def _unsegmented_events(self, ctx, tables, mlun, ps, ecap, t0):
+        """The group's unsegmented walk (``chain_anchors_device``): its
+        (lanes, q, s, len) event arrays, or None when its one buffer of
+        ``ecap`` events overflowed; and the phase clock."""
+        _, starts, rs_lens, thresholds, q_len2d = tables
+        out = chain_anchors_device(
+            ctx.isa, ctx.rm, ctx.text, mlun, ps, starts, rs_lens, thresholds,
+            ctx.q_base_h, ctx.q_start_h, q_len2d, ecap, CHASE, UNROLL)
+        ev_cnt, ovf, iters = out[4:]
+        cnt, ovf_h, iters_h = (int(x) for x in torch.stack(
+            [x.to(mlun.device, torch.int32) for x in (ev_cnt, ovf, iters)]
+        ).cpu())
+        if ovf_h:
+            return None, t0
+        ev = torch.stack([x[:cnt] for x in out[:4]]).cpu().numpy()
+        t0 = prof(f"anchor chain dispatch ({q_len2d.shape[0]} subj, "
+                  f"{iters_h} loop iters, {cnt} events)", t0, self.device)
+        return tuple(ev), t0
 
     def _loop_counts(self, ctx, model_kind, tables, mlun, ps, t0):
         """[Sg, Gp, 16] counts from the count-in-loop replay on the

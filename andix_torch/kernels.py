@@ -10,9 +10,10 @@ header under ``csrc/`` rebuilds.
 
 ``cpu_twin()`` builds the kernels' shared bodies (``flag_scan_tile.cuh``,
 ``walk_lane.cuh``, ``walk_sx_lane.cuh``, ``plcp_lane.cuh``,
-``rmq_tile.cuh``, ``replay_lane.cuh``) with g++ into a small host
-library, so the kernels' logic can be held to the JAX functions on a machine without a card (each
-at the kernel's tile, window or run sizes and at tiny ones).
+``rmq_tile.cuh``, ``replay_lane.cuh``, ``evpack_lane.cuh``,
+``bootstrap_lane.cuh``) with g++ into a small host library, so the
+kernels' logic can be held to the JAX functions on a machine without a
+card (each at the kernel's tile, window or run sizes and at tiny ones).
 
 ``launches`` counts, per kernel wrapper, the calls that launched the
 kernel on the card (the plain versions never count); ``launches_by_card``
@@ -38,16 +39,21 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CUDA_SOURCES = ("flag_scan.cu", "chain_walk.cu", "walk_sx.cu", "plcp.cu",
-                "rmq.cu", "replay.cu")
+                "rmq.cu", "replay.cu", "evpack.cu", "bootstrap.cu")
 CPU_TWIN_SOURCES = ("flag_scan_cpu.cpp", "walk_cpu.cpp", "walk_sx_cpu.cpp",
-                    "plcp_cpu.cpp", "rmq_cpu.cpp", "replay_cpu.cpp")
+                    "plcp_cpu.cpp", "rmq_cpu.cpp", "replay_cpu.cpp",
+                    "evpack_cpu.cpp", "bootstrap_cpu.cpp")
 CUDA_LIB = os.path.join(BUILD_DIR, "libandix_torch_cuda.so")
 CPU_TWIN_LIB = os.path.join(BUILD_DIR, "libandix_torch_walk_cpu.so")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
+# the resampler's float64 operations must round one by one, as its host
+# twin's (g++ -ffp-contract=off) and its plain version's do
+_NVCC_SOURCE_FLAGS = {"bootstrap.cu": ["-fmad=false"]}
 
 launches = {"flag_scan": 0, "chain_walk_flat": 0, "chain_walk_flat_sx": 0,
-            "plcp_lcp_hybrid": 0, "range_min_build": 0, "replay": 0}
+            "plcp_lcp_hybrid": 0, "range_min_build": 0, "replay": 0,
+            "evpack_encode": 0, "bootstrap_resample": 0}
 launches_by_card: dict[int, dict[str, int]] = {}
 
 _cuda_lib = None
@@ -86,6 +92,11 @@ _RMQ_ARGTYPES = [_P, ctypes.c_int64] + [_P] * 6 + [_I]
 # switch in place of the stream
 _REPLAY_ARGTYPES = ([_P, _P, ctypes.c_int64] + [_P] * 7 + [_I] * 3
                     + [_P, _P, ctypes.c_int64] + [_P] * 6 + [_I] * 6)
+# andix_evpack_encode's (evpack_lane.cuh, evpack.cu): the sorted lanes,
+# their slots, the q, s and len buffers, cnt, k, the lane count, esc_cap
+# and the output; the CUDA entry adds its scratch and the stream, the host
+# twin its block-size switch
+_EVPACK_ARGTYPES = [_P] * 5 + [ctypes.c_int64] * 2 + [_I] * 2 + [_P]
 
 
 def reset_launches() -> None:
@@ -178,7 +189,9 @@ def build_cuda() -> str:
         nvcc = _nvcc()
         objs = [_tmp(".o") for _ in sources]
         try:
-            _run([[nvcc] + _NVCC_FLAGS + ["-c", src, "-o", obj]
+            _run([[nvcc] + _NVCC_FLAGS
+                  + _NVCC_SOURCE_FLAGS.get(os.path.basename(src), [])
+                  + ["-c", src, "-o", obj]
                   for src, obj in zip(sources, objs)])
             _compile([nvcc] + _NVCC_FLAGS + ["-shared"], objs, CUDA_LIB)
         finally:
@@ -219,6 +232,13 @@ def _load_cuda():
     lib.andix_replay_splice.restype = _I
     lib.andix_replay_seg_ints.argtypes = [_I]
     lib.andix_replay_seg_ints.restype = _I
+    lib.andix_evpack_encode.argtypes = _EVPACK_ARGTYPES + [_P] * 4
+    lib.andix_evpack_encode.restype = _I
+    lib.andix_evpack_pairs.argtypes = []
+    lib.andix_evpack_pairs.restype = _I
+    lib.andix_bootstrap_resample.argtypes = [_P, _I, _I, ctypes.c_uint, _P,
+                                             _P]
+    lib.andix_bootstrap_resample.restype = _I
     lib.andix_set_device.argtypes = [_I]
     lib.andix_set_device.restype = _I
     lib.andix_cuda_error_string.argtypes = [_I]
@@ -245,8 +265,8 @@ def cpu_twin():
 def _load_cpu_twin():
     sources = [os.path.join(CSRC, s) for s in CPU_TWIN_SOURCES]
     if _stale(CPU_TWIN_LIB, sources):
-        _compile(["g++", "-std=c++17", "-O2", "-shared", "-fPIC"], sources,
-                 CPU_TWIN_LIB)
+        _compile(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                  "-fPIC"], sources, CPU_TWIN_LIB)
     lib = ctypes.CDLL(CPU_TWIN_LIB)
     lib.andix_flag_scan_cpu_tiles.argtypes = [ctypes.c_int64, _I, _I]
     lib.andix_flag_scan_cpu_tiles.restype = ctypes.c_int64
@@ -275,4 +295,9 @@ def _load_cpu_twin():
     lib.andix_replay_equal_cpu.restype = _I
     lib.andix_replay_seg_ints_cpu.argtypes = [_I]
     lib.andix_replay_seg_ints_cpu.restype = _I
+    lib.andix_evpack_encode_cpu.argtypes = _EVPACK_ARGTYPES + [_I]
+    lib.andix_evpack_encode_cpu.restype = _I
+    lib.andix_bootstrap_resample_cpu.argtypes = [_P, _I, _I, ctypes.c_uint,
+                                                 _P, _P]
+    lib.andix_bootstrap_resample_cpu.restype = _I
     return lib

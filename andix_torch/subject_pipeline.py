@@ -16,9 +16,11 @@ words + k-mer caches), one build's transients and the walk's buffers fit
 the device's memory budget (``pipeline.memory_budget``); each group walks
 all of its (subject, query) pairs through the segmented driver
 (``chain.segmented``, exact splicing) over
-``chain.walk_sx.chain_walk_flat_sx``, and the 16-cell counts come from the
-same host event counting as the joint schedule (``chain.events``), so the
-output is byte-identical across schedules.
+``chain.walk_sx.chain_walk_flat_sx``, each dispatch's events fetched
+packed (``chain.evpack``, ``ANDIX_EVPACK``, as ``andix`` does), and the
+16-cell counts come from the same host event counting as the joint
+schedule (``chain.events``), so the output is byte-identical across
+schedules.
 
 A group the schedule cannot finish goes back to the caller, which runs
 it on the joint schedule: after an event-buffer overflow the group is
@@ -51,7 +53,7 @@ import torch
 
 from . import _distributed, parallel
 from .chain import events as chain_events
-from .chain import segmented
+from .chain import evpack, segmented
 from .chain.replay_device import fetch_walk
 from .chain.walk_sx import SX_LANE_FIELDS, chain_walk_flat_sx
 from .esa import backend, joint, subject_index
@@ -308,6 +310,25 @@ def _pack_query_words(raw_blob, q_off, n, device) -> torch.Tensor:
     return subject_index.pack_words_u8(torch.from_numpy(blob2).to(device))
 
 
+def _fetch_events(ev4, cnt: int, lb: int, ecap: int) -> np.ndarray:
+    """A walk dispatch's [4, cnt] (lane, q, s, len) events on the host,
+    fetched as ``andix`` fetches them on this schedule
+    (subject_pipeline.py:474-516): with ``ANDIX_EVPACK`` other than 0,
+    packed on the device (``chain.evpack``, about 6 B an event), one copy,
+    decoded on the host in lane-major order; after an escape overflow,
+    and with ``ANDIX_EVPACK=0``, the raw int32 buffers in buffer order.
+    Either order gives every lane its events in chain order."""
+    if os.environ.get("ANDIX_EVPACK", "1") != "0":
+        k = min(bucket(max(cnt, 1), 4096), ecap)
+        flat = evpack.encode_events_flat(*ev4, cnt, k, lb).cpu().numpy()
+        packed, esc, counts, n_esc, esc_ovf = evpack.split_encoded(flat, k,
+                                                                   lb)
+        if not esc_ovf:
+            return np.stack(evpack.decode_events(packed, esc, counts,
+                                                 int(n_esc), cnt))
+    return torch.stack([x[:cnt] for x in ev4]).cpu().numpy()
+
+
 class _Stalled(Exception):
     """The segmented walk was about to repeat a dispatch that advanced no
     lane."""
@@ -357,7 +378,7 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
         res = fetch_walk(chain_walk_flat_sx(
             salcp, sw, cache2, nreal, qw, lanes, chunk_iters, maxev,
             cache_k, ecap_now,
-        ))
+        ), functools.partial(_fetch_events, ecap=ecap_now))
         overflowed |= res[4]
         ev, state, fin = res[:3]
         live = arr["pos0"] < arr["seg_end"]

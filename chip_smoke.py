@@ -64,7 +64,18 @@ line each; any failed phase raises and the script exits non-zero:
    under ``ANDIX_REPLAY=loop`` (phases 6 and 7's bytes, one replay launch and
    no walk launch, the loop phase beside the events run's walk and host
    count) and at 8 x 1 Mbp with ``ANDIX_EVENT_CAP=64`` (the buffer
-   overflows and the replay kernel counts);
+   overflows and the replay kernel counts); after it, the 8 x 5 Mbp CLI
+   under ``ANDIX_CHAIN_SEGMENTS=1`` (``andix``'s unsegmented events walk,
+   one launch, every event in one buffer: the default run's bytes,
+   ``phase_unsegmented``); the packed event fetch (``phase_evpack``): at
+   8 x 1 and 8 x 5 Mbp on the subject index, the encode kernel against
+   its plain version on every dispatch, exactly, with each dispatch's
+   events, bytes fetched raw and packed, encode, copy and decode times,
+   then three runs of each fetch (``ANDIX_EVPACK=1`` and ``0``) in turns,
+   each with the joint bytes, and their "sx: segmented walk" phases; and
+   the device bootstrap resampler (``phase_bootstrap``) at 406 pairs x
+   1000 rounds, its properties and the kernel == its host twin == its
+   plain version;
 8. the pair grid over several workers.  It prints
    ``torch.cuda.device_count()`` and the worker layout: with two or more
    cards the workers are the cards and the CLI runs with every card
@@ -96,8 +107,14 @@ written, 12 B a position, and the level entries the samples' walks read,
 8 B a sample and row.  The range-min build's are the values read and its
 arrays written once (``rmq_bound``).  The replay's are set out at
 ``replay_bound``; its row reports the kernel, the plain version and the
-bound from the plain run's counts at 8 x 1 Mbp in JC.  No single PyTorch
-call computes any of the six functions, so ``library_ms`` is null.
+bound from the plain run's counts at 8 x 1 Mbp in JC.  The packed
+encode's are 16 B a live event read and its output written
+(``evpack_bound``), at the 8 x 5 Mbp run's largest dispatch.  The
+resampler's bound is the larger of its bytes and its float64 operations
+(``boot_bound``).  No single PyTorch call computes any of the eight
+functions (``torch.binomial`` draws one binomial an element, so a
+resample that keeps each pair's total would take 15 calls), so
+``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -1222,6 +1239,332 @@ def phase_replay(dev, tmp, card, events_runs):
     return (*row, err, loop_launches)
 
 
+def _anchors_walk(dev, label, fam, plain: bool):
+    """``chain_anchors_device`` over a family's joint block (every pair
+    whole, the backend's default cap): the kernel's ms (CUDA events, 3
+    calls) and, with ``plain``, the plain walk's ms, each lane's stream
+    held to it and the byte bound from its counts (``walk_bound``);
+    without, the floor of the events written and the lanes' fields.
+    Returns (ms, plain ms or None, bound ms)."""
+    from andix_torch import kernels
+    from andix_torch.chain import replay_device as rd
+
+    _, ctx, _, mlun, ps, lanes = _replay_block(dev, fam)
+    fields = [lanes[n] for n in ("ss", "rl", "thr", "q_base", "q_start",
+                                 "q_len")]
+    ecap = max(1 << 16, ctx.tq.shape[0] // 2)
+
+    def kernel():
+        return rd.chain_anchors_device(ctx.isa, ctx.rm, ctx.text, mlun, ps,
+                                       *fields, ecap)
+
+    got = kernel()
+    cnt, ovf, iters = (int(x) for x in got[4:])
+    if ovf:
+        raise AssertionError(f"unsegmented walk {label}: {cnt} events "
+                             f"overflow {ecap}")
+    ms = cuda_ms(kernel, 3)
+    lb = lanes["q_len"].numel()
+    p_ms = None
+    if plain:
+        counts = {}
+        walk_lanes = rd.anchor_lanes(*fields, dev)
+        ref, p_ms = _timed(lambda: rd.chain_walk_flat_plain(
+            ctx.isa, ctx.rm, ctx.text, mlun, ps, walk_lanes, rd.UNCAPPED,
+            rd.UNCAPPED, ecap, 4, 4, counts,
+            kernels.cuda_lib().andix_walk_diag_win()))
+        if int(ref[4]) != cnt or any(
+                a.shape != b.shape or (a != b).any()
+                for a, b in zip(_per_lane(got, lb), _per_lane(ref, lb))):
+            raise AssertionError(f"unsegmented walk {label}: kernel != plain")
+        nbytes, bound_ms = walk_bound(counts, lb)
+        what = f"bound {bound_ms:.6f} ms ({nbytes} B, counts " \
+               f"{json.dumps(counts)})"
+    else:
+        nbytes = 16 * cnt + 61 * lb
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        what = f"floor bound {bound_ms:.6f} ms ({nbytes} B: the events " \
+               "written, the lanes' fields)"
+    say(f"chain_anchors_device {label}: {lb} lanes, {cnt} events in one "
+        f"buffer of {ecap}, {iters} iterations; kernel {ms:.4f} ms"
+        + (f", plain {p_ms:.1f} ms, kernel == plain" if plain else "")
+        + f"; {what}, {100 * bound_ms / ms:.3f}% of the kernel")
+    return ms, p_ms, bound_ms
+
+
+def phase_unsegmented(dev, tmp, card, paths, out_default):
+    """``andix``'s unsegmented events walk (``chain_anchors_device``, the
+    flat walk kernel over whole pairs): timed over the 8 x 50 kbp joint
+    block against its plain version and over the 8 x 5 Mbp block; then at
+    full width the 8 x 5 Mbp CLI under ``ANDIX_CHAIN_SEGMENTS=1`` (one
+    walk launch for the group, every event into one buffer of the default
+    cap) prints the default run's bytes, with no replay.  Returns the
+    run's averaged count matrices (the 28 pairs), read from its
+    ``calculate_matrix``."""
+    from andix_torch import pipeline
+    from andix_torch.model import model_average
+
+    _anchors_walk(dev, "8x50kbp", make_family(8, 50_000), True)
+    _anchors_walk(dev, "8x5Mbp", make_family(8, 5_000_000), False)
+    torch.cuda.empty_cache()
+    grids = []
+    orig = pipeline.calculate_matrix
+
+    def keep(*a, **kw):
+        grids.append(orig(*a, **kw))
+        return grids[-1]
+
+    pipeline.calculate_matrix = keep
+    try:
+        out, launches, _, _, ph = _cli_run(
+            paths, "joint", tmp, f"8x5Mbp ANDIX_CHAIN_SEGMENTS=1 on {card}",
+            env={"ANDIX_CHAIN_SEGMENTS": "1"})
+    finally:
+        pipeline.calculate_matrix = orig
+    walks = [p for p in ph if "anchor chain dispatch" in p]
+    if out != out_default or launches["chain_walk_flat"] != 1 or \
+            launches["replay"] or len(walks) != 1 or \
+            any("segmented walk" in p for p in ph):
+        raise AssertionError(f"8x5Mbp ANDIX_CHAIN_SEGMENTS=1: launches "
+                             f"{launches}, walks {walks}, bytes equal "
+                             f"{out == out_default}")
+    say("  8x5Mbp ANDIX_CHAIN_SEGMENTS=1: one unsegmented walk launch, "
+        "no overflow, PHYLIP == the default run's")
+    M = grids[0]
+    n = len(M)
+    return [model_average(M[i][j], M[j][i])
+            for i in range(n) for j in range(i + 1, n)]
+
+
+def evpack_bound(cnt: int, k: int, lanes: int) -> tuple[int, float]:
+    """Bytes the packed encode must move, and their time at the card's
+    memory rate: 16 B a live event read (lane, q, s, len) and the
+    encoding written once (``evpack.encoded_size``: 6 B a slot of k, the
+    escape list, the lane counts)."""
+    from andix_torch.chain import evpack
+
+    nbytes = 16 * cnt + 4 * evpack.encoded_size(k, lanes)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _fetch_dispatches(label, dispatches):
+    """Per dispatch of a subject run (its buffers, cnt, lanes, cap): the
+    encode (sort + kernel) against its plain version on the card, exactly;
+    events, bytes moved by each fetch, the encode's ms (CUDA events, 5
+    calls) and its device split, the plain ms, the copies' ms and the host
+    decode's ms (host clock).  Returns (max_abs_err, the largest
+    dispatch's (ms, plain ms, bound ms))."""
+    from andix_torch import subject_pipeline as sp
+    from andix_torch.chain import evpack
+
+    err, row = 0, None
+    for d, (ev4, cnt, lb, ecap) in enumerate(dispatches):
+        k = min(sp.bucket(max(cnt, 1), 4096), ecap)
+
+        def kernel():
+            return evpack.encode_events_flat(*ev4, cnt, k, lb)
+
+        def plain():
+            return evpack.encode_events_plain(*ev4, cnt, k, lb)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        e = max_abs_err([got], [ref])
+        if e:
+            raise AssertionError(f"evpack {label} dispatch {d}: kernel != "
+                                 f"plain, max_abs_err {e}")
+        err = max(err, e)
+        ms = cuda_ms(kernel, 5)
+        split = device_split(kernel, 5)
+        own = sum(v for n, v in split.items()
+                  if n.startswith(("fields_kernel", "scan_kernel",
+                                   "escapes_kernel")))
+        plain_ms = cuda_ms(plain, 1)
+        t0 = time.perf_counter()
+        flat = got.cpu().numpy()
+        packed_copy = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        parts = evpack.split_encoded(flat, k, lb)
+        esc_ovf = bool(parts[4])
+        if not esc_ovf:
+            dec = evpack.decode_events(*parts[:3], int(parts[3]), cnt)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw = torch.stack([x[:cnt] for x in ev4]).cpu().numpy()
+        raw_copy = (time.perf_counter() - t0) * 1e3
+        order = np.argsort(raw[0], kind="stable")
+        if not esc_ovf and any((a != b).any()
+                               for a, b in zip(dec, raw[:, order])):
+            bad = [int(np.argmax(a != b)) if (a != b).any() else None
+                   for a, b in zip(dec, raw[:, order])]
+            raise AssertionError(f"evpack {label} dispatch {d}: the decode "
+                                 f"is not the lane-major stream (first "
+                                 f"mismatch per field {bad}, {cnt} events, "
+                                 f"{int(parts[3])} escapes)")
+        nbytes, bound_ms = evpack_bound(cnt, k, lb)
+        say(f"  evpack {label} dispatch {d}: {cnt} events, k {k}, {lb} "
+            f"lanes, {int(parts[3])} escapes of {evpack.esc_capacity(lb)}"
+            + (" (escape overflow: the fetch takes the raw buffers)"
+               if esc_ovf else "") + f"; raw fetch {16 * cnt} B, "
+            f"packed fetch {4 * evpack.encoded_size(k, lb)} B; encode "
+            f"{ms:.4f} ms (its kernels {own:.4f} ms, the sort and the rest "
+            f"{ms - own:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({nbytes} B, {100 * bound_ms / ms:.2f}% of "
+            f"the encode); copies raw {raw_copy:.3f} ms, packed "
+            f"{packed_copy:.3f} ms; host decode {decode_ms:.3f} ms; kernel "
+            f"== plain")
+        if row is None or cnt > row[0]:
+            row = (cnt, ms, plain_ms, bound_ms)
+    return err, row[1:]
+
+
+def phase_evpack(tmp, card, runs, sx_launches_5m):
+    """The packed event fetch (``ANDIX_EVPACK``) on the subject-index
+    schedule at 8 x 1 and 8 x 5 Mbp (``runs``: label, paths, the joint
+    PHYLIP).  First a packed run whose every dispatch's raw buffers are
+    kept (``_fetch_dispatches`` holds the kernel to the plain version on
+    each and times both fetches' parts); then three runs of each fetch in
+    turns (packed, raw, ...), each printing the joint bytes, with the
+    "sx: segmented walk" phase of each, their means and spreads.  The
+    port keeps andix's default (packed) unless raw is faster at 8 x 5
+    Mbp by more than the spread of the three runs; the line says which.
+    Returns (kernel ms, plain ms, bound ms of the largest 8 x 5 Mbp
+    dispatch, max_abs_err, the 8 x 5 Mbp main run's encode launches)."""
+    from andix_torch import subject_pipeline as sp
+
+    if sx_launches_5m["evpack_encode"] <= 0:
+        raise AssertionError(f"the 8x5Mbp subject run did not launch the "
+                             f"encode: {sx_launches_5m}")
+    err, row = 0, None
+    for label, paths, out_joint in runs:
+        kept = []
+        orig = sp._fetch_events
+
+        def keeping(ev4, cnt, lb, ecap):
+            k = min(sp.bucket(max(cnt, 1), 4096), ecap)
+            kept.append(([x[:k].clone() for x in ev4], cnt, lb, ecap))
+            return orig(ev4, cnt, lb, ecap)
+
+        sp._fetch_events = keeping
+        try:
+            out, _, _, _, _ = _cli_run(paths, "subject", tmp,
+                                       f"{label} subject, dispatches kept")
+        finally:
+            sp._fetch_events = orig
+        if out != out_joint:
+            raise AssertionError(f"{label} subject (kept) PHYLIP != joint")
+        e, r = _fetch_dispatches(label, kept)
+        err = max(err, e)
+        if label.startswith("8x5"):
+            row = r
+        del kept
+        torch.cuda.empty_cache()
+        walk = {"1": [], "0": []}
+        for rep in range(3):
+            for mode in ("1", "0"):
+                out, launches, _, wall, ph = _cli_run(
+                    paths, "subject", tmp,
+                    f"{label} subject ANDIX_EVPACK={mode} run {rep + 1} on "
+                    f"{card}", env={"ANDIX_EVPACK": mode})
+                if out != out_joint or (launches["evpack_encode"] > 0) != (
+                        mode == "1"):
+                    raise AssertionError(
+                        f"{label} ANDIX_EVPACK={mode}: launches {launches},"
+                        f" bytes equal to the joint run's {out == out_joint}")
+                walk[mode].append(_phase_seconds(ph, "sx: segmented walk"))
+        stats = {m: (float(np.mean(v)), max(v) - min(v))
+                 for m, v in walk.items()}
+        say(f"  evpack {label}: PHYLIP == joint under ANDIX_EVPACK=0 and 1; "
+            f"sx segmented walk packed {walk['1']} s (mean "
+            f"{stats['1'][0]:.6f}, spread {stats['1'][1]:.6f}), raw "
+            f"{walk['0']} s (mean {stats['0'][0]:.6f}, spread "
+            f"{stats['0'][1]:.6f})")
+        if label.startswith("8x5"):
+            gain = stats["1"][0] - stats["0"][0]
+            spread = max(stats["1"][1], stats["0"][1])
+            say(f"  evpack default rule at 8x5Mbp: raw faster by "
+                f"{gain:.6f} s, spread {spread:.6f} s -> "
+                + ("raw wins" if gain > spread else "keep packed"))
+    return (*row, err, sx_launches_5m["evpack_encode"])
+
+
+BOOT_PAIRS = 406  # 29 genomes: the eco29 grid's pairs
+BOOT_ROUNDS = 1000
+FP64_OPS_PER_S = 34e12  # H100 SXM, FP64 outside the tensor cores (data sheet)
+
+
+def boot_bound(pairs: int, rounds: int, tally) -> tuple[int, float, float]:
+    """The resampler's bytes (the counts read once, 128 B a pair; the
+    output written once, 128 B a (round, pair)) and float64 operations
+    from the plain run's tally of the sampler's work (6 an inversion step:
+    a compare, a subtraction, three multiplications and a division; 2 an
+    inversion attempt: the uniform; 100 a BTRS attempt: its four logs at
+    about 20 each and some 20 more), each over the card's rate.  Returns
+    (bytes, bytes ms, operations ms)."""
+    nbytes = 128 * pairs + 128 * pairs * rounds
+    ops = (6 * tally["inv_steps"] + 2 * tally["inv_attempts"]
+           + 100 * tally["btrs_attempts"])
+    return (nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / FP64_OPS_PER_S * 1e3)
+
+
+def phase_bootstrap(averaged):
+    """The device bootstrap resampler at 406 pairs (the 8 x 5 Mbp
+    family's 28 averaged count matrices tiled, one all-zero pair) x 1000
+    rounds: ``device_bootstrap_rounds`` on the card (counts set to 0 just
+    before and read just after: one launch), its properties (totals kept,
+    the zero pair zero, rounds that differ, a rerun equal, another seed
+    different), the kernel against its host twin and its plain version on
+    the card, exactly; the kernel's ms (5 calls), the plain ms (once) and
+    the bound.  Returns (ms, plain ms, bound ms, bound_by, max_abs_err,
+    launches)."""
+    from andix_torch import bootstrap, kernels
+    from andix_torch.model import CountMatrix
+
+    pairs = [averaged[i % len(averaged)] for i in range(BOOT_PAIRS - 1)]
+    pairs.append(CountMatrix.zero(10))
+    seed = 2026
+    kernels.reset_launches()
+    out = bootstrap.device_bootstrap_rounds(pairs, BOOT_ROUNDS, seed)
+    launches = kernels.launches["bootstrap_resample"]
+    counts = np.stack([p.counts for p in pairs]).astype(np.int64)
+    if out.shape != (BOOT_ROUNDS, BOOT_PAIRS, 16) or launches != 1 or \
+            (out.sum(axis=2) != counts.sum(axis=1)[None]).any() or \
+            (out[:, -1] != 0).any() or (out[0] == out[1]).all() or \
+            (out != bootstrap.device_bootstrap_rounds(
+                pairs, BOOT_ROUNDS, seed)).any() or \
+            (out == bootstrap.device_bootstrap_rounds(
+                pairs, BOOT_ROUNDS, seed + 1)).all():
+        raise AssertionError(f"bootstrap 406x1000: properties fail "
+                             f"(launches {launches})")
+    ct = torch.from_numpy(counts).to("cuda")
+    ms = cuda_ms(lambda: bootstrap.resample(ct, BOOT_ROUNDS, seed), 5)
+    t0 = time.perf_counter()
+    twin = bootstrap.resample_cpu_twin(ct.cpu(), BOOT_ROUNDS, seed)
+    twin_s = time.perf_counter() - t0
+    tally = {}
+    plain, plain_ms = _timed(lambda: bootstrap.resample_plain(
+        ct, BOOT_ROUNDS, seed, tally))
+    got = torch.from_numpy(out)
+    err = max_abs_err([got], [plain.cpu()])
+    if not torch.equal(got, twin) or err:
+        raise AssertionError(f"bootstrap 406x1000: kernel != twin "
+                             f"({int((got != twin).sum())} cells) or plain "
+                             f"(max_abs_err {err})")
+    nbytes, bytes_ms, ops_ms = boot_bound(BOOT_PAIRS, BOOT_ROUNDS, tally)
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    say(f"bootstrap_resample {BOOT_PAIRS} pairs x {BOOT_ROUNDS} rounds: "
+        f"kernel == twin == plain; totals kept, the zero pair zero, rerun "
+        f"equal, seed {seed + 1} differs; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, twin {twin_s:.3f} s on the host; sampler work "
+        f"{json.dumps(tally)}; bound {bound_ms:.6f} ms by {bound_by} "
+        f"({nbytes} B -> {bytes_ms:.6f} ms, float64 operations -> "
+        f"{ops_ms:.6f} ms at {FP64_OPS_PER_S:.3g}/s)")
+    return ms, plain_ms, bound_ms, bound_by, err, launches
+
+
 def _stalls(prof_path) -> int:
     with open(prof_path) as f:
         return sum("walk stalled" in line for line in f)
@@ -1565,6 +1908,11 @@ def main() -> int:
         replay_t = phase_replay(dev, tmp1, smi, [
             ("8x1Mbp", paths_1m, out_1m, events_1m),
             ("8x5Mbp", paths_5m, out_5m, events_5m)])
+        averaged = phase_unsegmented(dev, tmp5, smi, paths_5m, out_5m)
+        evpack_t = phase_evpack(tmp5, smi, [("8x1Mbp", paths_1m, out_1m),
+                                            ("8x5Mbp", paths_5m, out_5m)],
+                                sx_launches)
+        boot_t = phase_bootstrap(averaged)
         with tempfile.TemporaryDirectory() as tmp_rep:
             phase_repeat(tmp_rep, smi)
         phase_multi_card(paths_5m, out_5m, paths_1m, out_1m)
@@ -1606,6 +1954,18 @@ def main() -> int:
          "launches": replay_t[4], "max_abs_err": replay_t[3],
          "ms": replay_t[0], "plain_ms": replay_t[1], "bound_ms": replay_t[2],
          "bound_by": "bytes", "library_ms": None},
+        {"name": "evpack_encode", "route": "cuda",
+         "source": "andix_torch/csrc/evpack.cu",
+         "replaces": "andix/chain/evpack.py:42",
+         "launches": evpack_t[4], "max_abs_err": evpack_t[3],
+         "ms": evpack_t[0], "plain_ms": evpack_t[1], "bound_ms": evpack_t[2],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "bootstrap_resample", "route": "cuda",
+         "source": "andix_torch/csrc/bootstrap.cu",
+         "replaces": "andix/bootstrap.py:39",
+         "launches": boot_t[5], "max_abs_err": boot_t[4], "ms": boot_t[0],
+         "plain_ms": boot_t[1], "bound_ms": boot_t[2], "bound_by": boot_t[3],
+         "library_ms": None},
     ]}
     say(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps(table))

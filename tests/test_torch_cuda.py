@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from andix_torch import kernels, subject_pipeline
+from andix_torch import bootstrap, kernels, subject_pipeline
+from andix_torch.chain import evpack
 from andix_torch.chain import replay_device as rd
 from andix_torch.chain import segmented, walk_sx
 from andix_torch.esa import doubling, joint, plcp, rmq, scans, subject_index
@@ -624,3 +625,117 @@ def test_wrappers_launch_on_the_workers_card(cuda):
                 assert a.shape == b.shape and (a == b).all()
 
     parallel.run_workers([lambda d=d: check(d) for d in range(count)])
+
+
+def test_chain_anchors_device_card_equals_cpu(cuda):
+    """The unsegmented events walk (the flat walk kernel, one lane a
+    pair, no iteration cap) on the card: the event count, the overflow
+    flag and each lane's stream equal the plain walk's on the CPU, with a
+    buffer that holds the walk and one that overflows."""
+    seqs = _family()
+    subjects = [subject_init(s, 0.025) for s in seqs]
+    out, lanes = {}, 0
+    for dev in (cuda, torch.device("cpu")):
+        be = TorchBackend(dev)
+        ctx = be.prepare_block(joint.build_block(
+            {i: subjects[i].rs for i in range(3)}, {}))
+        segs, starts, rs_lens, thr, q_len2d = be._group_tables(
+            ctx, [0, 1, 2], dict(enumerate(subjects)))
+        mlun, ps = rd.group_subject_tables(ctx.sa, ctx.lcp, ctx.segid,
+                                           ctx.tq, segs, starts)
+        lanes = q_len2d.size
+        for ecap in (1 << 16, 50):
+            before = kernels.launches["chain_walk_flat"]
+            got = rd.chain_anchors_device(
+                ctx.isa, ctx.rm, ctx.text, mlun, ps, starts, rs_lens, thr,
+                ctx.q_base_h, ctx.q_start_h, q_len2d, ecap)
+            assert kernels.launches["chain_walk_flat"] == before + (
+                dev.type == "cuda")
+            out[dev.type, ecap] = [x.cpu() for x in got]
+    for ecap in (1 << 16, 50):
+        a, b = out["cuda", ecap], out["cpu", ecap]
+        assert int(a[4]) == int(b[4]) > 50
+        assert bool(a[5]) == bool(b[5]) == (ecap == 50)
+        if ecap > 50:
+            for x, y in zip(_per_lane(a, lanes), _per_lane(b, lanes)):
+                assert x.shape == y.shape and (x == y).all()
+
+
+def _event_stream(cnt, n_lanes, seed, esc_frac):
+    """Walk-like events in interleaved lanes (each lane's q ascending):
+    large first positions escape, and a share ``esc_frac`` of long
+    anchors and of diagonal jumps."""
+    rng = np.random.default_rng(seed)
+    lane = rng.integers(0, n_lanes, cnt).astype(np.int64)
+    ln = rng.integers(20, 400, cnt)
+    ln[rng.random(cnt) < esc_frac] = 70_000
+    q = np.zeros(cnt, np.int64)
+    s = np.zeros(cnt, np.int64)
+    for k in range(n_lanes):
+        sel = np.nonzero(lane == k)[0]
+        step = ln[sel] + 1 + rng.integers(0, 300, len(sel))
+        q[sel] = rng.integers(0, 200_000) + np.cumsum(step) - step
+        jump = np.where(rng.random(len(sel)) < esc_frac,
+                        rng.integers(-60_000, 60_000, len(sel)), 0)
+        s[sel] = np.maximum(q[sel] + rng.integers(-5000, 5000)
+                            + np.cumsum(jump), 0)
+    return np.stack([lane, q, s, ln]).astype(np.int32)
+
+
+@pytest.mark.parametrize("cnt,k,n_lanes", [
+    (0, 4096, 64), (1, 7, 8), (3000, 4096, 64), (3001, 3001, 64),
+    (5000, 6144, 4),  # more escapes than esc_cap = 4096
+    (650_000, 786_432, 512), (1_000_001, 1_000_001, 8192)])
+def test_evpack_kernel_equals_twin_and_plain(cuda, cnt, k, n_lanes):
+    """The packed-fetch kernel's one output buffer (packed fields, escape
+    records, per-lane counts, n_esc and the overflow flag) equals the host
+    twin's and the plain version's exactly, garbage past cnt, odd k and an
+    escape overflow included."""
+    ev = _event_stream(cnt, n_lanes, cnt, 0.9 if n_lanes == 4 else 0.001)
+    rng = np.random.default_rng(k)
+    buf = rng.integers(-2**31, 2**31, (4, k + 3)).astype(np.int32)
+    buf[:, :cnt] = ev
+    host = [torch.from_numpy(x.copy()) for x in buf]
+    before = kernels.launches["evpack_encode"]
+    got = evpack.encode_events_flat(*(x.to(cuda) for x in host), cnt, k,
+                                    n_lanes)
+    assert kernels.launches["evpack_encode"] == before + 1
+    twin = evpack.encode_events_cpu_twin(*host, cnt, k, n_lanes)
+    plain = evpack.encode_events_plain(*host, cnt, k, n_lanes)
+    assert torch.equal(got.cpu(), twin) and torch.equal(twin, plain)
+    _, _, counts, n_esc, esc_ovf = evpack.split_encoded(plain, k, n_lanes)
+    assert int(counts.sum()) == cnt
+    assert bool(esc_ovf) == (n_lanes == 4)
+    if not bool(esc_ovf):
+        packed, esc, counts, n_esc, _ = evpack.split_encoded(got.cpu(), k,
+                                                             n_lanes)
+        dec = evpack.decode_events(packed.numpy(), esc.numpy(),
+                                   counts.numpy(), int(n_esc), cnt)
+        order = np.argsort(ev[0], kind="stable")
+        for a, b in zip(dec, ev[:, order]):
+            assert (a == b).all()
+
+
+@pytest.mark.parametrize("rounds,seed", [(1, 0), (200, 7), (1000, 2**33 + 5)])
+def test_bootstrap_kernel_equals_twin_and_plain(cuda, rounds, seed):
+    """The resampler kernel draws the host twin's counts exactly (the same
+    Philox words and float64 operations), and the plain version's on the
+    card; totals kept, the zero pair zero."""
+    rng = np.random.default_rng(seed % 1000)
+    counts = rng.integers(0, 60_000, (40, 16)) * (rng.random((40, 16)) < 0.5)
+    counts[3] = 0
+    counts[4] = 0
+    counts[4, 9] = 77
+    counts[5, :4] = [3, 1, 0, 2]
+    counts[6, 0] = (1 << 25) + 3
+    host = torch.from_numpy(counts.astype(np.int64))
+    before = kernels.launches["bootstrap_resample"]
+    got = bootstrap.resample(host.to(cuda), rounds, seed)
+    assert kernels.launches["bootstrap_resample"] == before + 1
+    twin = bootstrap.resample_cpu_twin(host, rounds, seed)
+    assert torch.equal(got.cpu(), twin)
+    if rounds <= 200:
+        assert torch.equal(bootstrap.resample_plain(host.to(cuda), rounds,
+                                                    seed).cpu(), twin)
+    assert (twin.sum(dim=2) == host.sum(dim=1)[None]).all()
+    assert (twin[:, 3] == 0).all() and (twin[:, 4, 9] == 77).all()

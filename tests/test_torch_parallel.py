@@ -256,11 +256,16 @@ def test_failing_worker_fails_the_run(monkeypatch, schedule):
     calculate_matrix raises instead of returning a grid with holes."""
     from andix_torch.esa import backend
 
+    from andix_torch.chain import replay_device
+
     monkeypatch.setenv("ANDIX_INDEX", schedule)
     monkeypatch.setenv("ANDIX_GROUP_SUBJECTS", "1")
-    module, name = ((backend, "chain_walk_flat") if schedule == "joint"
-                    else (subject_pipeline, "chain_walk_flat_sx"))
-    orig = getattr(module, name)
+    # the joint walk's wrapper, as the segmented driver (backend) and the
+    # unsegmented walk (replay_device.chain_anchors_device) reach it
+    targets = ([(backend, "chain_walk_flat"),
+                (replay_device, "chain_walk_flat")] if schedule == "joint"
+               else [(subject_pipeline, "chain_walk_flat_sx")])
+    orig = getattr(*targets[0])
     lock = threading.Lock()
     calls = []
 
@@ -271,7 +276,8 @@ def test_failing_worker_fails_the_run(monkeypatch, schedule):
                 raise RuntimeError("injected launch failure")
         return orig(*a, **kw)
 
-    monkeypatch.setattr(module, name, first_raises)
+    for module, name in targets:
+        monkeypatch.setattr(module, name, first_raises)
     with pytest.raises(RuntimeError, match="injected launch failure"):
         _port(_family(4, 800, seed=17), devices=[CPU, CPU])
     assert len(set(calls)) == 2  # the other worker ran on

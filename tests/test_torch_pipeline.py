@@ -113,24 +113,30 @@ def test_query_chunks(joint_schedule, monkeypatch):
 def test_event_overflow_falls_back_to_loop(joint_schedule, monkeypatch):
     """An event buffer too small for the walk (ANDIX_EVENT_CAP=4) sends
     the group, as andix does, from the segmented walk to the unsegmented
-    one and then to the count-in-loop replay, with equal counts; the
-    buffer is not widened."""
+    one (``chain_anchors_device``, one buffer) and then to the
+    count-in-loop replay, with equal counts; the buffer is not widened."""
     from andix_torch.esa import backend
 
     monkeypatch.setenv("ANDIX_EVENT_CAP", "4")
     caps, replays = [], []
-    orig, orig_replay = (segmented.segmented_group_anchors,
-                         backend.replay_rows)
+    orig, orig_anchors, orig_replay = (segmented.segmented_group_anchors,
+                                       backend.chain_anchors_device,
+                                       backend.replay_rows)
 
     def counting(walk, sg, gp, qb, *rest):
         caps.append(rest[-3:-1])  # seg_k, ecap
         return orig(walk, sg, gp, qb, *rest)
+
+    def unsegmented(*a):
+        caps.append((1, a[11]))  # one segment, ecap
+        return orig_anchors(*a)
 
     def replaying(*a, **kw):
         replays.append(a[6])  # exact_counts
         return orig_replay(*a, **kw)
 
     monkeypatch.setattr(segmented, "segmented_group_anchors", counting)
+    monkeypatch.setattr(backend, "chain_anchors_device", unsegmented)
     monkeypatch.setattr(backend, "replay_rows", replaying)
     fam = _family(3, 2000, [0.02, 0.3], seed=47)
     joint_schedule(fam, k=2)

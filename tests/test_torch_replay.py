@@ -334,8 +334,12 @@ def loop_replay(monkeypatch):
         return orig(*a, **kw)
 
     monkeypatch.setattr(backend, "replay_rows", counting)
+    def no_walk(*a, **kw):
+        pytest.fail("the event walk ran")
+
     monkeypatch.setattr(backend.segmented, "segmented_group_anchors",
-                        lambda *a, **kw: pytest.fail("the event walk ran"))
+                        no_walk)
+    monkeypatch.setattr(backend, "chain_anchors_device", no_walk)
 
     def run(genomes, model="JC"):
         names = [f"g{k}" for k in range(len(genomes))]
@@ -392,8 +396,9 @@ def test_border_pair_loop_and_events_equal_andix(monkeypatch, model):
     from andix_torch.esa import backend
 
     ran = []
-    replay, walk = (backend.replay_rows,
-                    backend.segmented.segmented_group_anchors)
+    replay, walk, whole = (backend.replay_rows,
+                           backend.segmented.segmented_group_anchors,
+                           backend.chain_anchors_device)
 
     def loop(*a, **kw):
         ran.append("loop")
@@ -403,8 +408,13 @@ def test_border_pair_loop_and_events_equal_andix(monkeypatch, model):
         ran.append("events")
         return walk(*a, **kw)
 
+    def events_whole(*a, **kw):
+        ran.append("events")
+        return whole(*a, **kw)
+
     monkeypatch.setattr(backend, "replay_rows", loop)
     monkeypatch.setattr(backend.segmented, "segmented_group_anchors", events)
+    monkeypatch.setattr(backend, "chain_anchors_device", events_whole)
     genomes = border_pair()
     names = ["g0", "g1"]
     ref = _grid(jpipeline.calculate_matrix(
@@ -459,8 +469,12 @@ def test_sharded_loop_equals_andix(monkeypatch):
 
     monkeypatch.setattr(backend.TorchBackend, "subject_group_counts",
                         recording)
+    def no_walk(*a, **kw):
+        pytest.fail("the event walk ran")
+
     monkeypatch.setattr(backend.segmented, "segmented_group_anchors",
-                        lambda *a, **kw: pytest.fail("the event walk ran"))
+                        no_walk)
+    monkeypatch.setattr(backend, "chain_anchors_device", no_walk)
     got = pipeline.calculate_matrix([Seq(d, nm) for nm, d in zip(names, fam)],
                                     Context(), [CPU] * 8)
     assert modes and set(modes) == {"loop"}

@@ -16,14 +16,19 @@ import torch
 
 import jax.numpy as jnp
 
+from andix import pipeline as jpipeline
 from andix.chain import replay_device as jrd
 from andix.esa import joint
 from andix.esa.backend_jax import JaxBackend
 from andix.runtime import Context
 from andix.sequence import Seq, subject_init
+from andix_torch import pipeline as tpipeline
 from andix_torch.chain import replay_device as rd
+from andix_torch.chain import segmented
 from andix_torch.esa import joint as tjoint
 from andix_torch.esa.backend import BlockContext, TorchBackend, text_bytes
+from andix_torch.runtime import Context as TContext
+from andix_torch.sequence import Seq as TSeq
 
 torch.set_num_threads(2)
 
@@ -64,7 +69,7 @@ def block():
                                           jctx.tq_d)),
         jctx.q_start_h, jctx.q_len_h, jctx.q_base_h, torch.device("cpu"))
     geo = dict(starts=starts, rs_lens=rs_lens, thresholds=thresholds,
-               q_len2d=q_len2d, gp=gp, sg=sg)
+               q_len2d=q_len2d, gp=gp, sg=sg, segs=segs)
     return jctx, mlun, ps, ctx, geo
 
 
@@ -396,3 +401,159 @@ def test_plain_counts_each_table_entry_once(block, k):
     assert counts == ref
     assert min(ref.values()) > 0
     assert ref["table_anchors"] < ref["probes"] - ref["lucky_checks"]
+
+
+
+# --- the unsegmented events walk (andix's chain_anchors_device) ---
+
+def _group_args(jctx, geo):
+    """The group's lane arrays in ``chain_anchors_device``'s order."""
+    return (geo["starts"], geo["rs_lens"], geo["thresholds"],
+            jctx.q_base_h, jctx.q_start_h, geo["q_len2d"])
+
+
+def _twin_walk(*args):
+    return rd.chain_walk_flat_cpu_twin(*args)
+
+
+@pytest.mark.parametrize("ecap", [1 << 15, 64])
+@pytest.mark.parametrize("route", ["plain", "twin", "tables"])
+def test_chain_anchors_device_equals_andix(block, monkeypatch, route, ecap):
+    """Every (subject, query) lane walked whole into one buffer: the
+    event count, the overflow flag (``ev_cnt > ecap`` over the whole walk)
+    and, without an overflow, each lane's stream equal andix's
+    ``chain_anchors_device`` (its jump tables, chase 12, unroll 1); by
+    the plain walk, by the kernel's host twin, and with the tables built
+    by ``subject_group_anchors_device``."""
+    jctx, mlun, ps, ctx, geo = block
+    lanes = _group_args(jctx, geo)
+    jm, jp, jump = jrd.group_subject_tables(
+        jctx.sa_d, jctx.lcp_d, jctx.segid_d, jctx.tq_d,
+        jnp.asarray(geo["segs"]), jnp.asarray(geo["starts"]),
+        jnp.asarray(geo["thresholds"]), 0)
+    ref = [np.asarray(x) for x in jrd.chain_anchors_device(
+        jctx.isa_d, jctx.rm, jm, jp, jump,
+        *(jnp.asarray(x) for x in lanes), ecap)]
+    if route == "twin":
+        _need_gxx()
+        monkeypatch.setattr(rd, "chain_walk_flat", _twin_walk)
+    if route == "tables":
+        got = rd.subject_group_anchors_device(
+            ctx.sa, ctx.lcp, ctx.segid, ctx.tq, ctx.isa, ctx.rm, ctx.text,
+            geo["segs"], *lanes, ecap)
+    else:
+        got = rd.chain_anchors_device(
+            ctx.isa, ctx.rm, ctx.text, torch.from_numpy(np.array(mlun)),
+            torch.from_numpy(np.array(ps)), *lanes, ecap)
+    assert len(got) == 7
+    got = [x.numpy() for x in got]
+    assert int(got[4]) == int(ref[4]) > 64
+    assert bool(got[5]) == bool(ref[5]) == (ecap == 64)
+    assert int(got[6]) > 0
+    if not bool(ref[5]):
+        lb = geo["sg"] * geo["gp"]
+        streams = list(zip(_per_lane(ref, lb), _per_lane(got, lb)))
+        assert sum(a.shape[1] for a, _ in streams) == int(ref[4])
+        for a, b in streams:
+            assert a.shape == b.shape and (a == b).all()
+
+
+def _fam3():
+    """The block fixture's 3 x 2500 bp family, as (name, bytes) pairs."""
+    return [(s.name, s.data) for s in _family(3, 2500, [0.04, 0.35], 3)]
+
+
+def _grids(fam):
+    """Both packages' count grids on the joint schedule (one process,
+    unsharded)."""
+    n = len(fam)
+    ref = jpipeline.calculate_matrix([Seq(d, nm) for nm, d in fam],
+                                     Context(), backend=JaxBackend())
+    got = tpipeline.calculate_matrix([TSeq(d, nm) for nm, d in fam],
+                                     TContext(), [torch.device("cpu")])
+    return [np.array([[M[i][j].counts for j in range(n)] for i in range(n)])
+            for M in (ref, got)]
+
+
+@pytest.fixture
+def spies(monkeypatch):
+    """Which walk and count paths each package takes: andix's
+    ``_subject_group_counts_loop``, the port's segmented driver,
+    ``chain_anchors_device`` (its ecap) and ``_loop_counts``."""
+    from andix_torch.esa import backend as tbackend
+
+    calls = {"jax_loop": 0, "segmented": [], "anchors": [], "loop": 0}
+    monkeypatch.setenv("ANDIX_INDEX", "joint")
+    monkeypatch.setenv("ANDIX_SHARDED", "0")
+    orig_jloop = JaxBackend._subject_group_counts_loop
+    orig_seg = segmented.segmented_group_anchors
+    orig_anchors = tbackend.chain_anchors_device
+    orig_loop = TorchBackend._loop_counts
+
+    def jax_loop(self, *a, **kw):
+        calls["jax_loop"] += 1
+        return orig_jloop(self, *a, **kw)
+
+    def seg(walk, sg, gp, qb, *rest):
+        calls["segmented"].append(rest[-3])  # K
+        return orig_seg(walk, sg, gp, qb, *rest)
+
+    def anchors(*a):
+        calls["anchors"].append(a[11])  # ecap
+        return orig_anchors(*a)
+
+    def loop(self, *a, **kw):
+        calls["loop"] += 1
+        return orig_loop(self, *a, **kw)
+
+    monkeypatch.setattr(JaxBackend, "_subject_group_counts_loop", jax_loop)
+    monkeypatch.setattr(segmented, "segmented_group_anchors", seg)
+    monkeypatch.setattr(tbackend, "chain_anchors_device", anchors)
+    monkeypatch.setattr(TorchBackend, "_loop_counts", loop)
+    return calls
+
+
+def test_one_segment_takes_the_unsegmented_walk(spies, monkeypatch):
+    """``ANDIX_CHAIN_SEGMENTS=1``: the group walks once, unsegmented, into
+    one buffer of andix's default cap, and its grid is andix's."""
+    monkeypatch.setenv("ANDIX_CHAIN_SEGMENTS", "1")
+    ref, got = _grids(_fam3())
+    assert (ref == got).all()
+    assert spies["segmented"] == [] and spies["loop"] == 0
+    assert spies["anchors"] == [1 << 16] and spies["jax_loop"] == 0
+
+
+def test_cap_between_a_dispatch_and_the_group_takes_the_replay(
+        block, spies, monkeypatch):
+    """An event cap that holds every chunk dispatch of a segmented walk at
+    K = 1 but not the group's total: andix walks K = 1 unsegmented into
+    one buffer, which overflows, and counts in the loop; so does the
+    port, with the same grid (a segmented driver at K = 1 would finish on
+    the events path)."""
+    jctx, mlun, ps, ctx, geo = block
+    monkeypatch.setattr(segmented, "CHUNK_ITERS", 4)
+    per_dispatch = []
+    mlun_t, ps_t = (torch.from_numpy(np.array(x)) for x in (mlun, ps))
+
+    def walk(arr, chunk_iters, maxev):
+        lanes = {n: torch.from_numpy(arr[n]) for n in rd.LANE_FIELDS}
+        res = rd.fetch_walk(rd.chain_walk_flat(
+            ctx.isa, ctx.rm, ctx.text, mlun_t, ps_t, lanes, chunk_iters,
+            maxev, 1 << 20, 4, 4))
+        per_dispatch.append(res[0].shape[1])
+        return res
+
+    res = segmented.segmented_group_anchors(
+        walk, geo["sg"], geo["gp"], jctx.tq_d.shape[0], geo["starts"],
+        geo["rs_lens"], geo["thresholds"], jctx.q_base_h, jctx.q_start_h,
+        geo["q_len2d"], 1, 1 << 20)
+    total = res[1].shape[0]
+    cap = max(per_dispatch)
+    assert len(per_dispatch) > 2 and cap < total
+    spies["segmented"].clear()
+
+    monkeypatch.setenv("ANDIX_EVENT_CAP", str(cap))
+    ref, got = _grids(_fam3())
+    assert (ref == got).all()
+    assert spies["jax_loop"] == 1 and spies["loop"] == 1
+    assert spies["segmented"] == [] and spies["anchors"] == [cap]
