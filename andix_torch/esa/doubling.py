@@ -18,6 +18,17 @@
   tail buffer is cut to the exact tied count each round where ``andix``'s
   device loop keeps static power-of-two tiers (``_tail_tiers``); the
   rounds, ranks and SA are the same.
+* **The kernels.**  On a card every round is three calls: ``sa_keys``
+  (``csrc/doubling.cu``: the int64 keys and each entry's int32 suffix in
+  one pass; the initial keys from one read of the text), CUB's radix
+  sort of the pairs over the keys' bits (``csrc/sa_sort.cu``, the one
+  library call, where ``andix`` has ``lax.sort``), and ``sa_rerank``
+  (one pass with a decoupled look-back: the bucket heads, the new ranks
+  and SA, the tied count, and in the tail rounds the still-tied entries
+  compacted in order; ``_extract_tied`` is its compaction over
+  rank[sa]).  A full round writes the new ranks and SA over the old.
+  The ``*_plain`` functions are the torch version the CPU runs;
+  ``Kernels(twin=True)`` runs the kernels' host twin (g++) on the CPU.
 * **The capped level buffer.**  Every rank array that still has ties is
   kept as a row of the level buffer (``push``), at most L rows: L is what
   the text can need (``levels_needed``) cut by the caller's level budget.
@@ -35,10 +46,13 @@
 
 from __future__ import annotations
 
+import ctypes
+from contextlib import contextmanager
 from typing import Callable
 
 import torch
 
+from .. import kernels
 from . import plcp
 
 BASE_WIDTH = 4  # initial prefix width of the clamped packed key
@@ -102,12 +116,12 @@ def wide_base_width(nseg: int, alphabet_ok: bool) -> int:
     return max(BASE_WIDTH, min(62 // bits, 12))
 
 
-def _initial_ranks(sym: torch.Tensor, packed: bool = False,
-                   base: int = BASE_WIDTH):
-    """Initial prefix ranks: width 1 (exact, any alphabet), width
-    BASE_WIDTH via one clamped int64 key (packed, base == BASE_WIDTH), or
-    width ``base`` in 5..12 via the dense-code key (packed, block
-    alphabet; ``wide_base_width``).
+def _initial_keys_plain(sym: torch.Tensor, packed: bool = False,
+                        base: int = BASE_WIDTH) -> torch.Tensor:
+    """The int64 initial sort keys (the plain version of the sa_keys
+    kernel's initial modes): the symbol (width 1, exact, any alphabet),
+    the clamped key (packed, base == BASE_WIDTH), or the dense-code key
+    (packed, base 5..12, block alphabet; ``wide_base_width``).
 
     Clamped key: the full symbol (separators and the increasing padding
     stay exactly ordered) above the next three symbols clamped to 10
@@ -116,15 +130,12 @@ def _initial_ranks(sym: torch.Tensor, packed: bool = False,
     and in order to small codes, ``base`` of them packed big-endian;
     padding positions take a disjoint upper band ordered by position.
     Two real windows that reach the padding hold the text's final unique
-    separator at different offsets, so no false tie exists.
-
-    Returns (rank int32 text order, tied count, order int32 = the SA
-    sorted by the prefix)."""
+    separator at different offsets, so no false tie exists."""
     s = sym.to(torch.int64)
     n = s.shape[0]
     if not packed:
-        key = s
-    elif base > BASE_WIDTH:
+        return s
+    if base > BASE_WIDTH:
         bits = 62 // base
         maxcode = (1 << bits) - 1
         c = torch.where(s == 65, 4, 0)
@@ -137,20 +148,26 @@ def _initial_ranks(sym: torch.Tensor, packed: bool = False,
             key = (key << bits) | plcp.shift_read(c, j)
         del c
         idx = torch.arange(n, dtype=torch.int64, device=s.device)
-        key = torch.where(s >= PAD_BASE, (1 << 62) + idx, key)
-        del idx
-    else:
-        key = s << 30
-        for j, shift in ((1, 20), (2, 10), (3, 0)):
-            key |= plcp.shift_read(s, j).clamp(max=PACK_CLAMP) << shift
-    del s
+        return torch.where(s >= PAD_BASE, (1 << 62) + idx, key)
+    key = s << 30
+    for j, shift in ((1, 20), (2, 10), (3, 0)):
+        key |= plcp.shift_read(s, j).clamp(max=PACK_CLAMP) << shift
+    return key
+
+
+def _initial_ranks_plain(sym: torch.Tensor, packed: bool = False,
+                         base: int = BASE_WIDTH):
+    """Initial prefix ranks: width 1, width BASE_WIDTH or width ``base``
+    in 5..12 (``_initial_keys_plain``).  Returns (rank int32 text order,
+    tied count, order int32 = the SA sorted by the prefix)."""
+    key = _initial_keys_plain(sym, packed, base)
     sorted_keys, order = torch.sort(key)
     del key
     rank, tied = _heads_and_tied(sorted_keys, order)
     return rank, tied, order.to(torch.int32)
 
 
-def _doubling_round(rank: torch.Tensor, k: int):
+def _doubling_round_plain(rank: torch.Tensor, k: int):
     """Full-size round: sort every position by (rank, rank at +k; -1 past
     the end), both bucket-head ranks below n, packed into one int64 key.
     Returns (new_rank, tied, order int32)."""
@@ -166,7 +183,7 @@ def _doubling_round(rank: torch.Tensor, k: int):
     return new_rank, tied, order.to(torch.int32)
 
 
-def _extract_tied(rank: torch.Tensor, sa: torch.Tensor):
+def _extract_tied_plain(rank: torch.Tensor, sa: torch.Tensor):
     """The tied SA slots (ascending, int64) and their suffixes."""
     head = rank[sa]
     same_prev = torch.zeros_like(head, dtype=torch.bool)
@@ -175,8 +192,9 @@ def _extract_tied(rank: torch.Tensor, sa: torch.Tensor):
     return slots, sa[slots]
 
 
-def _bucketed_round(rank: torch.Tensor, sa: torch.Tensor,
-                    slots: torch.Tensor, sa_vals: torch.Tensor, k: int):
+def _bucketed_round_plain(rank: torch.Tensor, sa: torch.Tensor,
+                          slots: torch.Tensor, sa_vals: torch.Tensor,
+                          k: int):
     """One tail round over the tied slots only: sort them by (head, rank
     at +k), scatter the permutation into ``sa`` and the split groups'
     heads (the slot of each subgroup's first member) into ``rank``, both
@@ -184,7 +202,7 @@ def _bucketed_round(rank: torch.Tensor, sa: torch.Tensor,
     sa_vals')."""
     n = rank.shape[0]
     head = rank[sa_vals]
-    shifted = sa_vals + k
+    shifted = sa_vals.to(torch.int64) + k  # int32 would wrap above 2^31
     key2 = torch.where(shifted < n, rank[shifted.clamp(max=n - 1)], -1)
     key = head.to(torch.int64) * (n + 1) + (key2.to(torch.int64) + 1)
     del head, shifted, key2
@@ -202,6 +220,274 @@ def _bucketed_round(rank: torch.Tensor, sa: torch.Tensor,
     return keep.shape[0], slots[keep], sav_s[keep]
 
 
+# sa_keys and sa_rerank modes (csrc/doubling_tile.cuh)
+_KEY_WIDTH1, _KEY_CLAMPED, _KEY_WIDE, _KEY_FULL, _KEY_TAIL = range(5)
+_RR_FULL, _RR_TAIL, _RR_EXTRACT = range(3)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _round_end_bit(n: int) -> int:
+    """Bits of a round's largest key, (n - 1) (n + 1) + n."""
+    return max(1, (n * n + n - 1).bit_length())
+
+
+_INITIAL_END_BIT = 63  # the initial keys are non-negative int64
+
+
+class Kernels:
+    """The doubling loop's two hand kernels (``csrc/doubling.cu``) and its
+    library sort (``csrc/sa_sort.cu``, CUB's radix sort of (key, int32
+    suffix) pairs over the key's bits): ``keys`` (sa_keys: one int64 sort
+    key and the entry's suffix an entry), ``sort`` and ``rerank``
+    (sa_rerank: heads, tied count and in-order compaction in one pass
+    after the sort).  Launched on the tensors' card, or, with ``twin``,
+    the kernels' host twin (``doubling_cpu.cpp``, g++) on CPU tensors, at
+    the kernel's tiles or (``tiny``) at tiles of 64, with ``torch.sort``.
+
+    ``trace``, a list, receives one dict a round on the card: its kind
+    (initial, full, extract, tail), its entries, the tied count after it,
+    and the sort's and each kernel's ms from CUDA events
+    (``chip_smoke.py`` prints them)."""
+
+    def __init__(self, twin: bool = False, tiny: bool = False,
+                 trace: list | None = None):
+        self.twin = twin
+        self.tiny = tiny
+        self.trace = None if twin else trace
+
+    def _check(self, *tensors: torch.Tensor | None) -> None:
+        """Every tensor given (None skipped): contiguous, on the first's
+        device (the card, or the CPU for the twin), int64 keys or int32
+        otherwise, fewer than 2^31 entries."""
+        want = "cpu" if self.twin else "cuda"
+        dev = tensors[0].device
+        for t in tensors:
+            if t is None:
+                continue
+            if t.device.type != want or t.device != dev:
+                raise ValueError(f"doubling kernels: a tensor on {t.device} "
+                                 f"where they take {want} ({dev})")
+            if t.dtype not in (torch.int32, torch.int64) or \
+                    not t.is_contiguous():
+                raise ValueError("doubling kernels: contiguous int32 or "
+                                 "int64 tensors only")
+            if t.numel() >= 1 << 31:
+                raise ValueError("doubling kernels: 2^31 or more entries")
+
+    def keys(self, mode: int, src: torch.Tensor, sa_vals, m: int, k: int = 0,
+             base: int = 1):
+        """The int64 keys of m entries and their int32 suffixes: of the
+        int32 text ``src`` (the initial modes), of the rank ``src`` at
+        every suffix (a full round) or at ``sa_vals`` (a tail round),
+        offset k."""
+        self._check(src, sa_vals)
+        if src.dtype != torch.int32 or (sa_vals is not None and
+                                        sa_vals.dtype != torch.int32):
+            raise ValueError("sa_keys: int32 text, ranks and suffixes")
+        key = torch.empty(m, dtype=torch.int64, device=src.device)
+        vals = torch.empty(m, dtype=torch.int32, device=src.device)
+        args = (mode, src.data_ptr(), _ptr(sa_vals), m, src.shape[0], k,
+                base, key.data_ptr(), vals.data_ptr())
+        if self.twin:
+            kernels.cpu_twin().andix_sa_keys_cpu(*args)
+        elif m:
+            with kernels.launch_on(src.device) as stream:
+                err = kernels.cuda_lib().andix_sa_keys(*args, stream)
+            kernels.check(err, "sa_keys")
+            kernels.count_launch("sa_keys", src.device)
+        return key, vals
+
+    def sort(self, key: torch.Tensor, vals: torch.Tensor, end_bit: int):
+        """(key, vals) sorted by the key's bits below ``end_bit``: CUB's
+        radix sort on the card, over ``key`` and ``vals`` themselves and
+        a second buffer of each; ``torch.sort`` and a gather for the
+        twin.  The inputs are not to be used afterwards."""
+        if self.twin:
+            sorted_keys, perm = torch.sort(key)
+            return sorted_keys, vals[perm]
+        m = key.shape[0]
+        if m < 2:
+            return key, vals
+        lib = kernels.cuda_lib()
+        key_alt, vals_alt = torch.empty_like(key), torch.empty_like(vals)
+        nbytes = lib.andix_sa_sort_temp_bytes(m, end_bit)
+        temp = torch.empty(max(nbytes, 16), dtype=torch.uint8,
+                           device=key.device)
+        selector = ctypes.c_int(0)
+        with kernels.launch_on(key.device) as stream:
+            err = lib.andix_sa_sort(
+                key.data_ptr(), key_alt.data_ptr(), vals.data_ptr(),
+                vals_alt.data_ptr(), m, end_bit, temp.data_ptr(), nbytes,
+                ctypes.byref(selector), stream)
+        kernels.check(err, "sa_sort")
+        return (key_alt, vals_alt) if selector.value else (key, vals)
+
+    def rerank(self, mode: int, m: int, keys=None, order=None, slots=None,
+               rank=None, sa=None, out=None) -> torch.Tensor:
+        """One rerank pass over m entries (the pointers each mode takes
+        are in ``doubling_tile.cuh``'s SdArgs); ``out`` is the pair of
+        buffers the tied entries are compacted into.  Returns the tied
+        count, an int32 [1] on the tensors' device."""
+        dev = rank.device
+        so, vo = out if out is not None else (None, None)
+        self._check(rank, keys, order, slots, sa, so, vo)
+        if keys is not None and keys.dtype != torch.int64 or any(
+                t is not None and t.dtype != torch.int32
+                for t in (order, slots, rank, sa, so, vo)):
+            raise ValueError("sa_rerank: int64 keys, int32 otherwise")
+        if not m:
+            return torch.zeros(1, dtype=torch.int32, device=dev)
+        tied = torch.empty(1, dtype=torch.int32, device=dev)
+        args = [mode, m] + [_ptr(t) for t in (keys, order, slots, rank, sa,
+                                               so, vo, tied)]
+        if self.twin:
+            kernels.cpu_twin().andix_sa_rerank_cpu(*args, int(self.tiny))
+            return tied
+        lib = kernels.cuda_lib()
+        scratch = torch.empty(max(lib.andix_sa_rerank_scratch_ints(m), 4),
+                              dtype=torch.int32, device=dev)
+        with kernels.launch_on(dev) as stream:
+            err = lib.andix_sa_rerank(*args, scratch.data_ptr(), stream)
+        kernels.check(err, "sa_rerank")
+        kernels.count_launch("sa_rerank", dev)
+        return tied
+
+    @contextmanager
+    def round(self, kind: str, entries: int):
+        """Times one round for ``trace``: the step marks the clock after
+        the key build and after the sort, and sets ``clock.tied``."""
+        clock = _RoundClock(self.trace is not None)
+        yield clock
+        if self.trace is not None:
+            self.trace.append(dict(kind=kind, entries=entries,
+                                   tied=clock.tied, **clock.read()))
+
+
+class _RoundClock:
+    """CUDA events at a round's start, after its key build, after its
+    sort and at its end (the extract pass: start and end only)."""
+
+    def __init__(self, on: bool):
+        self.events = []
+        self.on = on
+        self.tied = 0
+        self.mark()
+
+    def mark(self):
+        if self.on:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+
+    def read(self) -> dict[str, float]:
+        self.mark()
+        self.events[-1].synchronize()
+        e = self.events
+        if len(e) == 2:
+            return {"sort_ms": 0.0, "keys_ms": 0.0,
+                    "rerank_ms": e[0].elapsed_time(e[1])}
+        return {"sort_ms": e[1].elapsed_time(e[2]),
+                "keys_ms": e[0].elapsed_time(e[1]),
+                "rerank_ms": e[2].elapsed_time(e[3])}
+
+
+_PLAIN = object()  # the route of the plain version, on any device
+
+
+def _route(t: torch.Tensor, route):
+    """The route of a step: the one given, else the card's kernels for a
+    CUDA tensor and the plain version for a CPU tensor."""
+    if route is not None:
+        return route
+    return _PLAIN if t.device.type == "cpu" else Kernels()
+
+
+def _initial_ranks(sym: torch.Tensor, packed: bool = False,
+                   base: int = BASE_WIDTH, route=None):
+    """``_initial_ranks_plain`` through the kernels (a CUDA tensor, or the
+    twin's route): the keys, the sort, one rerank.  The symbols must be
+    non-negative (the texts' are)."""
+    route = _route(sym, route)
+    if route is _PLAIN:
+        return _initial_ranks_plain(sym, packed, base)
+    n = sym.shape[0]
+    mode = (_KEY_WIDTH1 if not packed
+            else _KEY_WIDE if base > BASE_WIDTH else _KEY_CLAMPED)
+    with route.round("initial", n) as clock:
+        key, vals = route.keys(mode, sym.to(torch.int32).contiguous(), None,
+                               n, base=base)
+        clock.mark()
+        key, vals = route.sort(key, vals, _INITIAL_END_BIT)
+        clock.mark()
+        rank = torch.empty(n, dtype=torch.int32, device=sym.device)
+        sa = torch.empty_like(rank)
+        tied = int(route.rerank(_RR_FULL, n, key, vals, rank=rank, sa=sa))
+        clock.tied = tied
+    return rank, tied, sa
+
+
+def _doubling_round(rank: torch.Tensor, sa: torch.Tensor, k: int,
+                    route=None):
+    """``_doubling_round_plain`` through the kernels, writing the new
+    ranks and SA over ``rank`` and ``sa`` (both dead once the keys are
+    built).  Returns (rank, tied, sa)."""
+    route = _route(rank, route)
+    if route is _PLAIN:
+        return _doubling_round_plain(rank, k)
+    n = rank.shape[0]
+    with route.round("full", n) as clock:
+        key, vals = route.keys(_KEY_FULL, rank, None, n, k)
+        clock.mark()
+        key, vals = route.sort(key, vals, _round_end_bit(n))
+        clock.mark()
+        tied = int(route.rerank(_RR_FULL, n, key, vals, rank=rank, sa=sa))
+        clock.tied = tied
+    return rank, tied, sa
+
+
+def _extract_tied(rank: torch.Tensor, sa: torch.Tensor, tied: int,
+                  route=None):
+    """``_extract_tied_plain`` through the rerank's compaction over
+    rank[sa] (the ``tied`` entries the last round counted): int32 slots,
+    ascending, and their suffixes."""
+    route = _route(rank, route)
+    if route is _PLAIN:
+        return _extract_tied_plain(rank, sa)
+    n = rank.shape[0]
+    out = (torch.empty(tied, dtype=torch.int32, device=rank.device),
+           torch.empty(tied, dtype=torch.int32, device=rank.device))
+    with route.round("extract", n) as clock:
+        route.rerank(_RR_EXTRACT, n, rank=rank, sa=sa, out=out)
+        clock.tied = tied
+    return out
+
+
+def _bucketed_round(rank: torch.Tensor, sa: torch.Tensor,
+                    slots: torch.Tensor, sa_vals: torch.Tensor, k: int,
+                    route=None):
+    """``_bucketed_round_plain`` through the kernels: the tail keys, the
+    sort, one rerank that scatters into ``sa`` and ``rank`` in place and
+    compacts the still-tied entries in order."""
+    route = _route(rank, route)
+    if route is _PLAIN:
+        return _bucketed_round_plain(rank, sa, slots, sa_vals, k)
+    m = slots.shape[0]
+    n = rank.shape[0]
+    with route.round("tail", m) as clock:
+        key, vals = route.keys(_KEY_TAIL, rank, sa_vals, m, k)
+        clock.mark()
+        key, vals = route.sort(key, vals, _round_end_bit(n))
+        clock.mark()
+        out = (torch.empty_like(slots), torch.empty_like(sa_vals))
+        tied = int(route.rerank(_RR_TAIL, m, key, vals, slots, rank, sa,
+                                out))
+        clock.tied = tied
+    return tied, out[0][:tied], out[1][:tied]
+
+
 def levels_needed(length: int, packed: bool = False,
                   base: int | None = None) -> int:
     """Level-buffer rows that can never overflow: the initial width-base
@@ -216,19 +502,22 @@ def levels_needed(length: int, packed: bool = False,
     return lv
 
 
-def sa_loop(sym: torch.Tensor, packed: bool, L: int, base: int):
+def sa_loop(sym: torch.Tensor, packed: bool, L: int, base: int,
+            route=None):
     """The doubling loop (``_sa_loop_traced``): full rounds while more
     than a quarter of the suffixes are tied, then tied-only rounds;
     every round's ranks go to row min(count, L - 1) of the level buffer,
     and a round that leaves ties counts a level, flagging the overflow
-    once the count reaches L.  Returns (sa int32, levels: a list of at
-    most L int32 [N] rows, level count, overflow); the rows below the
-    level count are ``andix``'s, and a row the count never reaches (the
-    last round's, which has no ties) is not kept."""
+    once the count reaches L.  A CUDA text runs the kernels (``route``
+    may carry a trace), a CPU text the plain version.  Returns (sa int32,
+    levels: a list of at most L int32 [N] rows, level count, overflow);
+    the rows below the level count are ``andix``'s, and a row the count
+    never reaches (the last round's, which has no ties) is not kept."""
+    route = _route(sym, route)
     n = sym.shape[0]
     thr0 = int(n * _BUCKET_FRAC)
     rank, tied, sa = _initial_ranks(sym, packed,
-                                    base if packed else BASE_WIDTH)
+                                    base if packed else BASE_WIDTH, route)
     levels = [rank.clone()]
     lev_idx = 1
     ovf = False
@@ -246,17 +535,29 @@ def sa_loop(sym: torch.Tensor, packed: bool, L: int, base: int):
             lev_idx += 1
 
     while tied > thr0 and k < n:
-        rank, tied, sa = _doubling_round(rank, min(k, n))
+        rank, tied, sa = _doubling_round(rank, sa, min(k, n), route)
         push(rank, tied)
         k = min(k * 2, 1 << 30)
     if tied > 0 and k < n:
-        slots, sa_vals = _extract_tied(rank, sa)
+        slots, sa_vals = _extract_tied(rank, sa, tied, route)
         while tied > 0 and k < n:
             tied, slots, sa_vals = _bucketed_round(rank, sa, slots, sa_vals,
-                                                   min(k, n))
+                                                   min(k, n), route)
             push(rank, tied)
             k = min(k * 2, 1 << 30)
     return sa, levels, lev_idx, ovf
+
+
+def sa_loop_plain(sym: torch.Tensor, packed: bool, L: int, base: int):
+    """``sa_loop`` with the plain version on the text's device (the card
+    too: ``chip_smoke.py`` holds the kernels to it)."""
+    return sa_loop(sym, packed, L, base, _PLAIN)
+
+
+def sa_loop_cpu_twin(sym: torch.Tensor, packed: bool, L: int, base: int,
+                     tiny: bool = False):
+    """``sa_loop`` with the kernels' host twin (g++) on a CPU text."""
+    return sa_loop(sym, packed, L, base, Kernels(twin=True, tiny=tiny))
 
 
 def _lcp_from_level_buffer(sa, levels, lev_count, sym, base: int,

@@ -11,7 +11,7 @@ header under ``csrc/`` rebuilds.
 ``cpu_twin()`` builds the kernels' shared bodies (``flag_scan_tile.cuh``,
 ``walk_lane.cuh``, ``walk_sx_lane.cuh``, ``plcp_lane.cuh``,
 ``rmq_tile.cuh``, ``replay_lane.cuh``, ``evpack_lane.cuh``,
-``bootstrap_lane.cuh``) with g++ into a small host library, so the
+``bootstrap_lane.cuh``, ``doubling_tile.cuh``) with g++ into a small host library, so the
 kernels' logic can be held to the JAX functions on a machine without a
 card (each at the kernel's tile, window or run sizes and at tiny ones).
 
@@ -39,10 +39,11 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CUDA_SOURCES = ("flag_scan.cu", "chain_walk.cu", "walk_sx.cu", "plcp.cu",
-                "rmq.cu", "replay.cu", "evpack.cu", "bootstrap.cu")
+                "rmq.cu", "replay.cu", "evpack.cu", "bootstrap.cu",
+                "doubling.cu", "sa_sort.cu")
 CPU_TWIN_SOURCES = ("flag_scan_cpu.cpp", "walk_cpu.cpp", "walk_sx_cpu.cpp",
                     "plcp_cpu.cpp", "rmq_cpu.cpp", "replay_cpu.cpp",
-                    "evpack_cpu.cpp", "bootstrap_cpu.cpp")
+                    "evpack_cpu.cpp", "bootstrap_cpu.cpp", "doubling_cpu.cpp")
 CUDA_LIB = os.path.join(BUILD_DIR, "libandix_torch_cuda.so")
 CPU_TWIN_LIB = os.path.join(BUILD_DIR, "libandix_torch_walk_cpu.so")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,7 +54,8 @@ _NVCC_SOURCE_FLAGS = {"bootstrap.cu": ["-fmad=false"]}
 
 launches = {"flag_scan": 0, "chain_walk_flat": 0, "chain_walk_flat_sx": 0,
             "plcp_lcp_hybrid": 0, "range_min_build": 0, "replay": 0,
-            "evpack_encode": 0, "bootstrap_resample": 0}
+            "evpack_encode": 0, "bootstrap_resample": 0, "sa_keys": 0,
+            "sa_rerank": 0}
 launches_by_card: dict[int, dict[str, int]] = {}
 
 _cuda_lib = None
@@ -97,6 +99,14 @@ _REPLAY_ARGTYPES = ([_P, _P, ctypes.c_int64] + [_P] * 7 + [_I] * 3
 # and the output; the CUDA entry adds its scratch and the stream, the host
 # twin its block-size switch
 _EVPACK_ARGTYPES = [_P] * 5 + [ctypes.c_int64] * 2 + [_I] * 2 + [_P]
+# andix_sa_keys's (doubling.cu): the mode, the text or rank, the tail's
+# suffixes, m, n, k, the base width, the keys and the suffixes out;
+# andix_sa_rerank's: the mode, m, the sorted keys and suffixes, slots,
+# rank, sa, the two compaction outputs and the tied count.  The CUDA
+# entries add the stream (the rerank its scratch first), the host twin
+# its tile switch
+_SA_KEYS_ARGTYPES = [_I, _P, _P] + [ctypes.c_int64] * 3 + [_I, _P, _P]
+_SA_RERANK_ARGTYPES = [_I, ctypes.c_int64] + [_P] * 8
 
 
 def reset_launches() -> None:
@@ -239,6 +249,17 @@ def _load_cuda():
     lib.andix_bootstrap_resample.argtypes = [_P, _I, _I, ctypes.c_uint, _P,
                                              _P]
     lib.andix_bootstrap_resample.restype = _I
+    lib.andix_sa_keys.argtypes = _SA_KEYS_ARGTYPES + [_P]
+    lib.andix_sa_keys.restype = _I
+    lib.andix_sa_rerank_scratch_ints.argtypes = [ctypes.c_int64]
+    lib.andix_sa_rerank_scratch_ints.restype = ctypes.c_int64
+    lib.andix_sa_rerank.argtypes = _SA_RERANK_ARGTYPES + [_P, _P]
+    lib.andix_sa_rerank.restype = _I
+    lib.andix_sa_sort_temp_bytes.argtypes = [ctypes.c_int64, _I]
+    lib.andix_sa_sort_temp_bytes.restype = ctypes.c_int64
+    lib.andix_sa_sort.argtypes = ([_P] * 4 + [ctypes.c_int64, _I, _P,
+                                              ctypes.c_int64, _P, _P])
+    lib.andix_sa_sort.restype = _I
     lib.andix_set_device.argtypes = [_I]
     lib.andix_set_device.restype = _I
     lib.andix_cuda_error_string.argtypes = [_I]
@@ -300,4 +321,8 @@ def _load_cpu_twin():
     lib.andix_bootstrap_resample_cpu.argtypes = [_P, _I, _I, ctypes.c_uint,
                                                  _P, _P]
     lib.andix_bootstrap_resample_cpu.restype = _I
+    lib.andix_sa_keys_cpu.argtypes = _SA_KEYS_ARGTYPES
+    lib.andix_sa_keys_cpu.restype = _I
+    lib.andix_sa_rerank_cpu.argtypes = _SA_RERANK_ARGTYPES + [_I]
+    lib.andix_sa_rerank_cpu.restype = _I
     return lib

@@ -1,12 +1,13 @@
-"""Time the flag scan, the search walk, the sampled-PLCP LCP and the
-range-min build at the main paths' shapes on one CUDA card, with CUDA
-events, for this checkout or another one.
+"""Time the flag scan, the search walk, the sampled-PLCP LCP, the
+range-min build, the count-in-loop replay and the suffix-array doubling
+loop at the main paths' shapes on one CUDA card, with CUDA events, for
+this checkout or another one.
 
 Run from the repository root, on a machine with a card:
 
     python3 bench_kernels.py [--tree DIR] [--reps 20]
                              [--what all | a list of
-                                     scan,walk,plcp,rmq,replay]
+                                     scan,walk,plcp,rmq,replay,sa]
                              [--segments 1,8,16,32]
 
 ``--tree DIR`` imports ``andix_torch`` from DIR, a checkout of another
@@ -25,8 +26,12 @@ over every lane of the 8 x 1 and 8 x 5 Mbp joint blocks, JC and LogDet,
 and with ``--segments`` (a tree with segmented replay lanes) again at
 each K listed: its counts and tallies held to the default K's, the
 call's ms, each pass's device ms and the splice counters
-(``chip_smoke.replay_passes``).  Each kernel is run once before its
-timed launches.  ``--split`` also
+(``chip_smoke.replay_passes``); the doubling loop (``doubling.sa_loop``,
+every level row the text needs) over the padded joint texts of 8 x 1
+Mbp (2^24) and 8 x 5 Mbp (100,663,296) and of both clonal families, one
+call cold (the allocator's cache emptied) and then warm, with the
+device bytes one call allocates at its peak above what it was given (in
+a tree from before the doubling kernels, that is the torch loop).  Each kernel is run once before its timed launches.  ``--split`` also
 prints the device time of each launch of one PLCP call, from
 torch.profiler.  Prints the card's name and power limit first, one line
 per measurement, and one JSON object last; exits
@@ -41,6 +46,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -70,10 +76,10 @@ def main(argv=None) -> int:
                     "time the replay too")
     ap.add_argument("--what", default="all",
                     help="all, or a comma-separated list of scan, walk, "
-                    "plcp, rmq, replay")
+                    "plcp, rmq, replay, sa")
     args = ap.parse_args(argv)
     what = set(args.what.split(","))
-    if not what <= {"all", "scan", "walk", "plcp", "rmq", "replay"}:
+    if not what <= {"all", "scan", "walk", "plcp", "rmq", "replay", "sa"}:
         ap.error(f"--what {args.what}")
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
@@ -138,6 +144,8 @@ def main(argv=None) -> int:
     if wants("replay"):
         segments = [int(k) for k in args.segments.split(",") if k]
         out.update(_replay(cs, dev, max(1, args.reps // 4), segments))
+    if wants("sa"):
+        out.update(_sa(cs, dev, max(1, args.reps // 4)))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -176,6 +184,44 @@ def _plcp_rmq(cs, dev, reps, do_plcp, do_rmq, split=False):
                   flush=True)
             out[f"rmq_build_ms {label}"] = ms
         del sym, sa, levels, args, lcp
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sa(cs, dev, reps):
+    """The doubling loop over ``chip_smoke``'s padded joint texts (and the
+    repeat family's): one cold call (the allocator's cache emptied first,
+    as the CLI's block build meets it; host clock to a synchronize), the
+    warm call's ms and its peak device bytes above its inputs."""
+    from andix_torch.esa import doubling
+
+    out = {}
+    for label, fam in (("8x1Mbp", cs.make_family(8, 1_000_000)),
+                       ("8x5Mbp", cs.make_family(8, 5_000_000)),
+                       ("8x1Mbp clonal",
+                        cs.clonal(cs.make_family(8, 1_000_000))),
+                       ("8x5Mbp clonal",
+                        cs.clonal(cs.make_family(8, 5_000_000)))):
+        sym, sa, levels, cnt, _, base, _ = cs._joint_text(dev, fam)
+        del sa, levels
+        n = sym.shape[0]
+        L = doubling.plan_levels(n, True, base, None, True, "hybrid")[0]
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        doubling.sa_loop(sym, True, L, base)
+        torch.cuda.synchronize()
+        cold = 1e3 * (time.perf_counter() - t0)
+        ms = cs.cuda_ms(lambda: doubling.sa_loop(sym, True, L, base), reps)
+        _, _, peak = cs._peak_since(lambda: doubling.sa_loop(sym, True, L,
+                                                             base))
+        print(f"sa_loop {label} (n={n}, {cnt} levels): cold {cold:.4f} ms, "
+              f"warm {ms:.4f} ms, peak {peak} B above the text = "
+              f"{peak / n:.2f} B a position", flush=True)
+        out[f"sa_loop_cold_ms {label}"] = cold
+        out[f"sa_loop_ms {label}"] = ms
+        out[f"sa_loop_peak_bytes {label}"] = peak
+        del sym
         torch.cuda.empty_cache()
     return out
 

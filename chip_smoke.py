@@ -20,7 +20,11 @@ line each; any failed phase raises and the script exits non-zero:
    joint texts of 8 x 1 Mbp (2^24) and 8 x 5 Mbp (100,663,296) and of the
    8 x 1 Mbp clonal family (g1 = g0) with every level row it needs (its
    LCP also equal to the host Φ LCP) and cut to andix's 14 rows (entries
-   left open, the overflow flag up), LCP and overflow flag; the
+   left open, the overflow flag up), LCP and overflow flag; on each of
+   those texts first the doubling loop's two kernels (sa_keys,
+   sa_rerank) against the plain loop: SA, every level row, the level
+   count and the overflow flag, with each round's kind, entries, tied
+   count, sort ms and kernel ms and the kernels' byte bound; the
    range-min build over the 8 x 1 and 8 x 5 Mbp joint LCPs, every array
    it makes; print the times, the walks' counts and each kernel's byte
    bound from the data of its run;
@@ -107,11 +111,15 @@ written, 12 B a position, and the level entries the samples' walks read,
 8 B a sample and row.  The range-min build's are the values read and its
 arrays written once (``rmq_bound``).  The replay's are set out at
 ``replay_bound``; its row reports the kernel, the plain version and the
-bound from the plain run's counts at 8 x 1 Mbp in JC.  The packed
+bound from the plain run's counts at 8 x 1 Mbp in JC.  The doubling
+loop's two kernels' are counted round by round (``sa_kernel_bytes``);
+their rows report each kernel's ms summed over one loop at 8 x 1 Mbp
+(2^24) and, as ``plain_ms``, the plain loop's (the same sorts and the
+torch passes the two kernels replace).  The packed
 encode's are 16 B a live event read and its output written
 (``evpack_bound``), at the 8 x 5 Mbp run's largest dispatch.  The
 resampler's bound is the larger of its bytes and its float64 operations
-(``boot_bound``).  No single PyTorch call computes any of the eight
+(``boot_bound``).  No single PyTorch call computes any of the ten
 functions (``torch.binomial`` draws one binomial an element, so a
 resample that keeps each pair's total would take 15 calls), so
 ``library_ms`` is null.
@@ -573,18 +581,168 @@ def clonal(fam):
     return fam
 
 
+def sa_kernel_bytes(trace) -> tuple[int, int]:
+    """Bytes the doubling loop's two kernels must move over one loop's
+    rounds (``doubling.Kernels``' trace), each input read once and each
+    output written once, 4 B an int32 and 8 B an int64 entry.  sa_keys:
+    the text or the rank read (4 B a position), the key and the suffix
+    written (12 B) in the initial and full rounds; in a tail round the
+    tied suffixes and their two rank entries read (12 B) and the key and
+    suffix written (12 B).  sa_rerank: the sorted key and suffix read (12
+    B), SA and the rank written (8 B); in a tail round also the slots
+    read (4 B) and the still-tied slots and suffixes written (8 B each);
+    the extract pass reads SA and the rank (8 B a position) and writes
+    the tied slots and suffixes.  Returns (sa_keys bytes, sa_rerank
+    bytes)."""
+    kb = rb = 0
+    for r in trace:
+        m, tied = r["entries"], r["tied"]
+        if r["kind"] in ("initial", "full"):
+            kb += 16 * m
+            rb += 20 * m
+        elif r["kind"] == "tail":
+            kb += 24 * m
+            rb += 24 * m + 8 * tied
+        else:  # extract
+            rb += 8 * m + 8 * tied
+    return kb, rb
+
+
+def _sa_rounds(label, sym, base, L):
+    """One traced run of the doubling loop's kernels (each round's kind,
+    entries, tied count after it, the sort's and each kernel's ms from
+    CUDA events) after an untraced one (the allocator's warm-up), then
+    the loop timed untraced.  Returns a dict of the sums, the loop's ms
+    and the kernels' byte bounds."""
+    from andix_torch.esa import doubling
+
+    doubling.sa_loop(sym, True, L, base)
+    trace = []
+    sa, levels, cnt, _ = doubling.sa_loop(sym, True, L, base,
+                                          doubling.Kernels(trace=trace))
+    del sa, levels
+    for i, r in enumerate(trace):
+        say(f"  {label} round {i}: {r['kind']}, {r['entries']} entries, "
+            f"{r['tied']} tied after; sort {r['sort_ms']:.4f} ms, sa_keys "
+            f"{r['keys_ms']:.4f} ms, sa_rerank {r['rerank_ms']:.4f} ms")
+    ms = cuda_ms(lambda: doubling.sa_loop(sym, True, L, base), 3,
+                 warm=False)
+    kb, rb = sa_kernel_bytes(trace)
+    out = {"loop_ms": ms, "rounds": len(trace), "levels": cnt}
+    for key in ("sort_ms", "keys_ms", "rerank_ms"):
+        out[key] = sum(r[key] for r in trace)
+    out["keys_bound_ms"] = kb / HBM_BYTES_PER_S * 1e3
+    out["rerank_bound_ms"] = rb / HBM_BYTES_PER_S * 1e3
+    kernels_ms = out["keys_ms"] + out["rerank_ms"]
+    loop_bytes, loop_bound = sa_bound(sym.shape[0], cnt)
+    say(f"  {label} loop: {ms:.4f} ms untraced ({len(trace)} rounds, {cnt} "
+        f"levels); traced: sorts {out['sort_ms']:.4f} ms, sa_keys "
+        f"{out['keys_ms']:.4f} ms (bound {out['keys_bound_ms']:.4f} ms, {kb} "
+        f"B), sa_rerank {out['rerank_ms']:.4f} ms (bound "
+        f"{out['rerank_bound_ms']:.4f} ms, {rb} B): kernels "
+        f"{100 * (out['keys_bound_ms'] + out['rerank_bound_ms']) / kernels_ms:.2f}"
+        f"% of their bound; sa_bound {loop_bound:.4f} ms ({loop_bytes} B) = "
+        f"{100 * loop_bound / ms:.3f}% of the loop")
+    return out
+
+
+def _sort_yardstick(label, sym, base):
+    """The loop's library sort against ``torch.sort`` on one full round's
+    keys (the round after the initial ranks): CUB's pairs sort of (key,
+    int32 suffix) over the key's bits, which the loop calls, and
+    ``torch.sort`` of the keys, which the plain loop calls.  Both give the
+    same sorted keys and the suffixes in an order that those keys
+    follow.  CUB sorts in place, so each of its timed calls first copies
+    the keys and suffixes back; the copies are timed alone and taken
+    off.  Also timed: the full rerank's random scatter alone, torch's
+    ``index_put_`` of n int32 through the sorted order.  Returns (CUB ms,
+    torch.sort ms)."""
+    from andix_torch.esa import doubling
+
+    route = doubling.Kernels()
+    n = sym.shape[0]
+    rank, _, _ = doubling._initial_ranks(sym, True, base)
+    key, vals = route.keys(doubling._KEY_FULL, rank, None, n, base)
+    end_bit = doubling._round_end_bit(n)
+    kc, vc = key.clone(), vals.clone()
+    got_k, got_v = route.sort(kc, vc, end_bit)
+    ref_k, _ = torch.sort(key)
+    if not torch.equal(got_k, ref_k) or not torch.equal(
+            key[got_v.long()], ref_k):
+        raise AssertionError(f"sa_sort {label}: != torch.sort")
+    del got_k, got_v, ref_k
+
+    def copies():
+        kc.copy_(key)
+        vc.copy_(vals)
+
+    copy_ms = cuda_ms(copies, 5)
+    cub_ms = cuda_ms(lambda: (copies(), route.sort(kc, vc, end_bit)),
+                     5) - copy_ms
+    torch_ms = cuda_ms(lambda: torch.sort(key), 5)
+    # the rerank's floor: its scatter alone, as torch does it
+    order = torch.sort(key)[1]
+    scatter_ms = cuda_ms(lambda: rank.index_put_((order,), vals), 5)
+    say(f"  {label} sort of one full round's keys ({end_bit} bits): CUB "
+        f"pairs (int64 key, int32 suffix) {cub_ms:.4f} ms, torch.sort "
+        f"{torch_ms:.4f} ms; same sorted keys; its scatter alone "
+        f"(rank.index_put_ through the sorted order) {scatter_ms:.4f} ms")
+    return cub_ms, torch_ms
+
+
+def _hold_sa(label, sym, base, cap, got):
+    """The doubling loop's kernels (``got``: sa_loop's result on the card)
+    against its plain version on the card, exactly: SA, every level row
+    kept, the level count and the overflow flag; then each round and the
+    loop timed (``_sa_rounds``), the plain loop timed once, and the
+    loop's sort against torch.sort (``_sort_yardstick``).  Returns
+    ``_sa_rounds``' dict with the plain ms, the error and both sorts'
+    ms."""
+    from andix_torch.esa import doubling
+
+    t0 = time.time()
+    n = sym.shape[0]
+    L = doubling.plan_levels(n, True, base, cap, True, "hybrid")[0]
+    ref = doubling.sa_loop_plain(sym, True, L, base)
+    torch.cuda.synchronize()
+    sa, levels, cnt, ovf = got
+    if (cnt, ovf, len(levels)) != (ref[2], ref[3], len(ref[1])):
+        raise AssertionError(f"sa_loop {label}: levels {cnt}, overflow {ovf}"
+                             f", rows {len(levels)} != plain {ref[2:]}, "
+                             f"{len(ref[1])}")
+    err = max_abs_err([sa] + levels, [ref[0]] + ref[1])
+    if err:
+        raise AssertionError(f"sa_loop {label}: max_abs_err {err}")
+    del ref
+    say(f"sa_loop {label} (n={n}, base {base}, {cnt} levels, {len(levels)} "
+        f"rows, overflow {ovf}): kernels == plain (SA, every row, count, "
+        f"flag)")
+    out = _sa_rounds(label, sym, base, L)
+    out["plain_ms"] = cuda_ms(lambda: doubling.sa_loop_plain(sym, True, L,
+                                                             base), 1,
+                              warm=False)
+    out["err"] = err
+    out["cub_sort_ms"], out["torch_sort_ms"] = _sort_yardstick(label, sym,
+                                                               base)
+    say(f"  {label}: plain loop {out['plain_ms']:.4f} ms, kernels' loop "
+        f"{out['loop_ms']:.4f} ms; this check {time.time() - t0:.1f} s")
+    return out
+
+
 def phase_plcp(dev):
     """The sampled-PLCP kernels against their plain version, exactly (LCP
     and overflow flag), on the padded joint texts of 8 x 1 Mbp, 8 x 5 Mbp
     and the 8 x 1 Mbp clonal family with every level row it needs, whose
     LCP must also equal the host Φ LCP; then on the clonal family cut to
     andix's 14 rows, where entries stay open and the flag rises; timed on
-    each.  Returns (kernel ms, plain ms, max_abs_err, bound ms) at
-    8 x 1 Mbp, and the kernel's LCPs of the 8 x 1 and 8 x 5 Mbp texts."""
+    each.  Before it, on each text, the doubling loop's kernels against
+    its plain version (``_hold_sa``).  Returns (kernel ms, plain ms,
+    max_abs_err, bound ms) at 8 x 1 Mbp, the kernel's LCPs of the 8 x 1
+    and 8 x 5 Mbp texts, and ``_hold_sa``'s dict at 8 x 1 Mbp."""
     from andix_torch import native
     from andix_torch.esa import plcp
 
-    timing = None
+    timing = sa_timing = None
     lcps = {}
     for label, fam, cap in (
             ("8x1Mbp", make_family(8, 1_000_000), None),
@@ -594,6 +752,9 @@ def phase_plcp(dev):
              clonal(make_family(8, 1_000_000)), ANDIX_ROWS)):
         sym, sa, levels, cnt, ovf_sa, base, n_real = _joint_text(dev, fam,
                                                                  cap)
+        sa_t = _hold_sa(label, sym, base, cap, (sa, levels, cnt, ovf_sa))
+        if label == "8x1Mbp":
+            sa_timing = sa_t
         args = (sym, sa, levels, cnt, base)
         got = plcp.plcp_lcp_hybrid(*args)
         ref = plcp.plcp_lcp_hybrid_plain(*args)
@@ -629,7 +790,7 @@ def phase_plcp(dev):
                 f"real positions (longest {int(lcp.max())})")
         del sym, sa, levels, got, ref, args
         torch.cuda.empty_cache()
-    return timing, lcps
+    return timing, lcps, sa_timing
 
 
 def rmq_bound(rm) -> tuple[int, float]:
@@ -922,7 +1083,8 @@ def phase_main_path(tmp, card):
     say(f"  {peak / padded:.2f} B per padded symbol ({padded} padded "
         f"symbols)")
     if min(launches["flag_scan"], launches["chain_walk_flat"],
-           launches["plcp_lcp_hybrid"], launches["range_min_build"]) <= 0 \
+           launches["plcp_lcp_hybrid"], launches["range_min_build"],
+           launches["sa_keys"], launches["sa_rerank"]) <= 0 \
             or launches["chain_walk_flat_sx"]:
         raise AssertionError(f"the joint path's kernels did not launch: "
                              f"{launches}")
@@ -934,8 +1096,8 @@ def phase_main_path(tmp, card):
         raise AssertionError(f"8x1Mbp subject-index PHYLIP != joint:\n"
                              f"{out_sx}\n{out}")
     if min(sx_launches["chain_walk_flat_sx"],
-           sx_launches["plcp_lcp_hybrid"]) <= 0 or \
-            sx_launches["chain_walk_flat"]:
+           sx_launches["plcp_lcp_hybrid"], sx_launches["sa_keys"],
+           sx_launches["sa_rerank"]) <= 0 or sx_launches["chain_walk_flat"]:
         raise AssertionError(f"8x1Mbp subject run launches {sx_launches}")
     say("  8x1Mbp: ANDIX_INDEX=subject PHYLIP == joint schedule PHYLIP, "
         f"{len(out)} bytes")
@@ -948,7 +1110,7 @@ def phase_full_size(tmp, card):
     paths = write_fasta(tmp, fam)
     out_sx, sx_launches, _, _, _ = _cli_run(
         paths, "subject", tmp, f"8x5Mbp subject index on {card}")
-    out_j, _, _, wall_j, phases_j = _cli_run(
+    out_j, launches_j, _, wall_j, phases_j = _cli_run(
         paths, "joint", tmp, f"8x5Mbp joint schedule on {card}")
     if out_sx != out_j:
         raise AssertionError(f"8x5Mbp subject-index PHYLIP != joint:\n"
@@ -957,6 +1119,10 @@ def phase_full_size(tmp, card):
             sx_launches["chain_walk_flat"]:
         raise AssertionError(f"8x5Mbp subject run launches {sx_launches}: "
                              f"rows fell back to the joint walk")
+    if min(sx_launches["sa_keys"], sx_launches["sa_rerank"],
+           launches_j["sa_keys"], launches_j["sa_rerank"]) <= 0:
+        raise AssertionError(f"8x5Mbp: the doubling kernels did not launch: "
+                             f"subject {sx_launches}, joint {launches_j}")
     say(f"  8x5Mbp: ANDIX_INDEX=subject PHYLIP == ANDIX_INDEX=joint PHYLIP, "
         f"{len(out_sx)} bytes")
     _check_matrix(out_sx, 8)
@@ -1022,24 +1188,30 @@ def _timed(fn):
 
 def device_split(fn, reps: int = 1) -> dict[str, float]:
     """{kernel name: mean device ms a call} over ``reps`` calls of ``fn``
-    under torch.profiler (after a warm call)."""
+    under torch.profiler (after a warm call).  Now and then a profiler
+    session records no device activity at all, with no error; such a
+    session is run again, three times at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("<")[0].strip().split("::")[-1]
-            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("<")[0].strip().split(
+                    "::")[-1]
+                out[name] = out.get(name, 0.0) + us / 1e3 / reps
+        if out:
+            break
     return out
 
 
@@ -1587,13 +1759,14 @@ def phase_repeat(tmp, card):
     SA and LCP from the kernel equal those of a backend whose budget
     holds andix's 14 rows, which overflows and retreats to the host Φ LCP
     (its phase lines show it), and those of the CPU backend (the plain
-    versions).  The whole CLI on the CPU at this size would spend most of
+    versions); then the doubling loop's rounds on the block's text
+    (``_sa_rounds``).  The whole CLI on the CPU at this size would spend most of
     the script's time limit in the plain flag scans, so the CLI's bytes
     are held to the CPU's on the 8 x 50 kbp copy."""
     from andix_torch import kernels
     from andix_torch import subject_pipeline as sp
-    from andix_torch.esa import backend, joint
-    from andix_torch.esa.backend import bucket
+    from andix_torch.esa import backend, doubling, joint
+    from andix_torch.esa.backend import bucket, pad_symbols
     from andix_torch.sequence import Seq, subject_init
 
     small = clonal(make_family(8, 50_000))
@@ -1704,6 +1877,19 @@ def phase_repeat(tmp, card):
         f"{'; '.join(p.split('] ')[-1] for p in phases[2][1:3])}); longest "
         f"adjacent LCP {int(lcp_k.max())}")
     del ctxs, sa_k, lcp_k, sa_h, lcp_h, sa_c, lcp_c
+    torch.cuda.empty_cache()
+
+    # the doubling loop's rounds on the block's text: the kernels' and the
+    # sorts' share of the 20-level loop (its SA is held to the CPU's above)
+    padded = bucket(n)
+    sym = torch.from_numpy(pad_symbols(layout.sym, padded)).to(
+        torch.device("cuda", 0))
+    base = doubling.wide_base_width(len(layout.genome_ids), True)
+    t0 = time.time()
+    _sa_rounds("8x5Mbp repeat block", sym, base, doubling.plan_levels(
+        padded, True, base, None, True, "hybrid")[0])
+    say(f"  8x5Mbp repeat block rounds: {time.time() - t0:.1f} s")
+    del sym
 
 
 def _run_grid(paths, devices, env):
@@ -1893,7 +2079,7 @@ def main() -> int:
     fs_t = phase_flag_scan(dev)
     walk_t = phase_walk(dev)
     sx_t = phase_walk_sx(dev)
-    plcp_t, lcps = phase_plcp(dev)
+    plcp_t, lcps, sa_t = phase_plcp(dev)
     rmq_t = phase_rmq(lcps)
     del lcps
     torch.cuda.empty_cache()
@@ -1965,6 +2151,20 @@ def main() -> int:
          "replaces": "andix/bootstrap.py:39",
          "launches": boot_t[5], "max_abs_err": boot_t[4], "ms": boot_t[0],
          "plain_ms": boot_t[1], "bound_ms": boot_t[2], "bound_by": boot_t[3],
+         "library_ms": None},
+        {"name": "sa_keys", "route": "cuda",
+         "source": "andix_torch/csrc/doubling.cu",
+         "replaces": "andix/esa/doubling.py:520",
+         "launches": launches["sa_keys"], "max_abs_err": sa_t["err"],
+         "ms": sa_t["keys_ms"], "plain_ms": sa_t["plain_ms"],
+         "bound_ms": sa_t["keys_bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "sa_rerank", "route": "cuda",
+         "source": "andix_torch/csrc/doubling.cu",
+         "replaces": "andix/esa/doubling.py:520",
+         "launches": launches["sa_rerank"], "max_abs_err": sa_t["err"],
+         "ms": sa_t["rerank_ms"], "plain_ms": sa_t["plain_ms"],
+         "bound_ms": sa_t["rerank_bound_ms"], "bound_by": "bytes",
          "library_ms": None},
     ]}
     say(f"chip_smoke: {time.time() - t_start:.1f} s")

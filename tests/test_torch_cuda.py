@@ -739,3 +739,183 @@ def test_bootstrap_kernel_equals_twin_and_plain(cuda, rounds, seed):
                                                     seed).cpu(), twin)
     assert (twin.sum(dim=2) == host.sum(dim=1)[None]).all()
     assert (twin[:, 3] == 0).all() and (twin[:, 4, 9] == 77).all()
+
+
+def _sa_text(kind, n, seed=3):
+    """(int32 text, packed, base) for the doubling kernels: random DNA
+    (width 1), padded DNA (the clamped key, or the dense-code key at
+    ``wide<b>``), or a joint block of three genomes with separators and
+    padding (``family``; ``clonal``: g1 = g0)."""
+    rng = np.random.default_rng(seed)
+    dna = NUCL[rng.integers(0, 4, n)]
+    if kind == "dna":
+        return torch.from_numpy(dna.astype(np.int32)), False, 1
+    if kind == "clamped":
+        return torch.from_numpy(pad_symbols(dna.astype(np.int32), n + 3)), \
+            True, 4
+    if kind.startswith("wide"):  # padded to 16 | n for the PLCP kernel
+        return torch.from_numpy(pad_symbols(dna.astype(np.int32),
+                                            (n + 5 + 15) // 16 * 16)), \
+            True, int(kind[4:])
+    seqs = [Seq(dna, "g0"), Seq(dna.copy() if kind == "clonal" else
+                                NUCL[rng.integers(0, 4, n)], "g1"),
+            Seq(NUCL[rng.integers(0, 4, n)], "g2")]
+    subjects = [subject_init(s, 0.025) for s in seqs]
+    layout = joint.build_block({i: s.rs for i, s in enumerate(subjects)},
+                               {})
+    padded = -(-layout.n // 1024) * 1024
+    return (torch.from_numpy(pad_symbols(layout.sym, padded)), True,
+            doubling.wide_base_width(3, True))
+
+
+@pytest.mark.parametrize("mode,base", [(0, 1), (1, 4)]
+                         + [(2, b) for b in range(5, 13)])
+def test_sa_keys_initial_kernel_equals_plain(cuda, mode, base):
+    """sa_keys' initial modes == ``_initial_keys_plain``, bit for bit, on a
+    joint text with separators and padding (block size 2^16 + 5)."""
+    sym, _, _ = _sa_text("family", 20_000)
+    sym = torch.cat([sym, sym[-5:] + 5])  # one more padded block edge
+    n = sym.shape[0]
+    before = kernels.launches["sa_keys"]
+    got, vals = doubling.Kernels().keys(mode, sym.to(cuda), None, n,
+                                        base=base)
+    assert kernels.launches["sa_keys"] == before + 1
+    ref = doubling._initial_keys_plain(sym, mode > 0, base)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(vals.cpu(), torch.arange(n, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 2, 2047, 2049, (1 << 20) + 3])
+@pytest.mark.parametrize("tail", [False, True])
+def test_sa_keys_round_kernel_equals_plain(cuda, n, tail):
+    """sa_keys' full and tail modes == the plain key rank[i] (n + 1) +
+    rank[i + k] + 1 (0 past the end), at i = every suffix or the given
+    suffixes, for k below and above n / 2; each entry's suffix i as its
+    sort value."""
+    rng = np.random.default_rng(n)
+    rank = rng.integers(0, n, n).astype(np.int32)
+    vals = (rng.permutation(n)[: max(1, n // 3)] if tail
+            else np.arange(n)).astype(np.int32)
+    for k in (1, max(1, n // 2 + 1), n):
+        i = vals.astype(np.int64)
+        r2 = np.where(i + k < n, rank[np.minimum(i + k, n - 1)].astype(
+            np.int64) + 1, 0)
+        ref = rank[i].astype(np.int64) * (n + 1) + r2
+        got, sfx = doubling.Kernels().keys(
+            doubling._KEY_TAIL if tail else doubling._KEY_FULL,
+            torch.from_numpy(rank).to(cuda),
+            torch.from_numpy(vals).to(cuda) if tail else None, len(vals), k)
+        assert (got.cpu().numpy() == ref).all()
+        assert (sfx.cpu().numpy() == vals).all()
+
+
+def _round_equal(got, ref):
+    """(rank, tied, sa) of a round on the card and plain on the CPU: the
+    ranks, the count and the heads in SA order (the order inside a tied
+    group is the sort's)."""
+    rank, tied, sa = (x.cpu() if torch.is_tensor(x) else x for x in got)
+    assert tied == ref[1]
+    assert torch.equal(rank, ref[0])
+    assert torch.equal(rank[sa.long()], ref[0][ref[2].long()])
+
+
+@pytest.mark.parametrize("kind,n", [("dna", 2049), ("clamped", 70_001),
+                                    ("wide6", 70_001), ("clonal", 3000),
+                                    ("dna", (1 << 22) + 1)])
+def test_sa_rerank_kernel_equals_plain(cuda, kind, n):
+    """sa_rerank in each mode (full: the initial ranks and a full round;
+    extract; tail, twice) == the plain steps from the same inputs.  Width-1
+    DNA at 2^22 + 1 gives four groups of about a million entries each, so
+    the heads cross hundreds of tiles through the look-back."""
+    sym, packed, base = _sa_text(kind, n)
+    before = kernels.launches["sa_rerank"]
+    got = doubling._initial_ranks(sym.to(cuda), packed, base)
+    ref = doubling._initial_ranks(sym, packed, base)
+    assert kernels.launches["sa_rerank"] == before + 1
+    _round_equal(got, ref)
+    rank, _, sa = ref
+    k = base
+    got = doubling._doubling_round(rank.to(cuda), sa.to(cuda), k)
+    ref = doubling._doubling_round(rank.clone(), sa.clone(), k)
+    _round_equal(got, ref)
+    rank, tied, sa = ref
+    k *= 2
+    assert tied > 0
+    r_c, s_c = rank.to(cuda), sa.to(cuda)
+    slots, sa_vals = doubling._extract_tied(r_c, s_c, tied)
+    p_slots, p_vals = doubling._extract_tied(rank, sa, tied)
+    assert torch.equal(slots.cpu().long(), p_slots)
+    assert torch.equal(sa_vals.cpu(), p_vals)
+    for _ in range(2):
+        t_c, slots, sa_vals = doubling._bucketed_round(r_c, s_c, slots,
+                                                       sa_vals, k)
+        t_p, p_slots, p_vals = doubling._bucketed_round(rank, sa, p_slots,
+                                                        p_vals, k)
+        assert t_c == t_p
+        assert torch.equal(r_c.cpu(), rank)
+        assert torch.equal(rank[s_c.cpu().long()], rank[sa.long()])
+        assert torch.equal(slots.cpu().long(), p_slots)
+        assert torch.equal(rank[sa_vals.cpu().long()], rank[p_vals.long()])
+        k *= 2
+        if not t_c:
+            break
+
+
+@pytest.mark.parametrize("kind,n", [("dna", 1), ("dna", 3), ("dna", 2049),
+                                    ("clamped", 4095), ("wide9", 100_003),
+                                    ("family", 20_000), ("clonal", 20_000)])
+def test_sa_loop_card_equals_plain(cuda, kind, n):
+    """The whole loop on the card (every key and rerank by the kernels) ==
+    the plain version on the CPU and on the card: SA, the level rows, the
+    count and the flag, also with the budget cut to 2 rows."""
+    sym, packed, base = _sa_text(kind, n)
+    for L in (doubling.levels_needed(sym.shape[0], packed, base), 2):
+        kernels.reset_launches()
+        got = doubling.sa_loop(sym.to(cuda), packed, L, base)
+        launched = dict(kernels.launches)
+        for ref in (doubling.sa_loop(sym, packed, L, base),
+                    doubling.sa_loop_plain(sym.to(cuda), packed, L, base)):
+            assert got[2:] == ref[2:] and len(got[1]) == len(ref[1])
+            assert torch.equal(got[0].cpu(), ref[0].cpu())
+            for a, b in zip(got[1], ref[1]):
+                assert torch.equal(a.cpu(), b.cpu())
+        assert launched["sa_keys"] > 0 and launched["sa_rerank"] > 0
+
+
+@pytest.mark.parametrize("n", [1024, 70_000, 1 << 20])
+def test_sa_lcp_device_card_equals_cpu_sizes(cuda, n):
+    """SA + LCP (hybrid mode) of padded DNA on the card and on the CPU."""
+    sym, _, base = _sa_text("wide12", n)
+    got = doubling.sa_lcp_device(sym.to(cuda), True, lcp_mode="hybrid",
+                                 base_width=base)
+    ref = doubling.sa_lcp_device(sym, True, lcp_mode="hybrid",
+                                 base_width=base)
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_doubling_launches_on_the_workers_card(cuda):
+    """Two worker threads a card, none of which sets a current device:
+    each loop's SA and rows land on its card, equal the plain version's,
+    and its keys and reranks count on that card."""
+    from andix_torch import parallel
+
+    count = torch.cuda.device_count()
+    sym, packed, base = _sa_text("family", 20_000)
+    L = doubling.levels_needed(sym.shape[0], packed, base)
+    ref = doubling.sa_loop(sym, packed, L, base)
+    kernels.reset_launches()
+
+    def check(d):
+        dev = torch.device("cuda", d)
+        got = doubling.sa_loop(sym.to(dev), packed, L, base)
+        assert all(x.device == dev for x in [got[0]] + got[1])
+        assert got[2:] == ref[2:] and torch.equal(got[0].cpu(), ref[0])
+        for a, b in zip(got[1], ref[1]):
+            assert torch.equal(a.cpu(), b)
+
+    parallel.run_workers([lambda d=d: check(d) for d in range(count)] * 2)
+    rounds = kernels.launches["sa_rerank"] // (2 * count)
+    for d in range(count):
+        card = kernels.launches_by_card[d]
+        assert card["sa_rerank"] == 2 * rounds and card["sa_keys"] > 0

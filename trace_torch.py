@@ -11,6 +11,11 @@ Run from the repository root, on a machine with a card:
 commit (for example one unpacked with ``git archive``), so two commits
 can be traced in one call on one card.
 
+After the CLI runs it traces one call of the suffix-array doubling loop
+(``doubling.sa_loop``) over the family's padded joint text, as the joint
+block builds it, and prints its device busy time and its ten largest
+device items.
+
 It writes the synthetic family of ``chip_smoke.make_family`` to a
 temporary directory, runs ``andix_torch.cli.main --backend cuda -m JC``
 once untraced (kernel build and warm-up), then ``--runs`` times under
@@ -41,7 +46,8 @@ OURS = ("chain_walk_flat_kernel", "walk_sx", "flag_scan", "finals_kernel",
         "prefix_kernel", "seeded_kernel", "pack_kernel", "samples_kernel",
         "settle_kernel", "fill_kernel", "fine_kernel", "t8_kernel",
         "tg_kernel", "replay_rows_kernel", "replay_cold_kernel",
-        "replay_splice_kernel")
+        "replay_splice_kernel", "initial_key_kernel", "round_key_kernel",
+        "rerank_kernel")
 
 
 def _device_items(prof):
@@ -125,7 +131,35 @@ def main(argv=None) -> int:
                   flush=True)
             if code != 0:
                 return 1
+    _trace_sa(label, chip_smoke.make_family(args.genomes, args.length))
     return 0
+
+
+def _trace_sa(label, fam):
+    """torch.profiler over one doubling loop on the family's joint text
+    (after one untraced call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from andix_torch.esa import doubling
+
+    dev = torch.device("cuda", 0)
+    sym, _, _, cnt, _, base, _ = chip_smoke._joint_text(dev, fam)
+    n = sym.shape[0]
+    L = doubling.plan_levels(n, True, base, None, True, "hybrid")[0]
+    doubling.sa_loop(sym, True, L, base)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        doubling.sa_loop(sym, True, L, base)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    items = _device_items(prof)
+    busy = sum(t for t, _ in items.values()) / 1e6
+    print(f"trace {label} sa_loop (n={n}, {cnt} levels): wall {wall:.6f} s, "
+          f"device busy {busy:.6f} s ({100 * busy / wall:.2f}%)", flush=True)
+    for k, (us, c) in sorted(items.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  top {k[:60]}: {us / 1e3:.4f} ms, {c} calls", flush=True)
 
 
 if __name__ == "__main__":
