@@ -18,17 +18,23 @@
   tail buffer is cut to the exact tied count each round where ``andix``'s
   device loop keeps static power-of-two tiers (``_tail_tiers``); the
   rounds, ranks and SA are the same.
-* **The kernels.**  On a card every round is three calls: ``sa_keys``
-  (``csrc/doubling.cu``: the int64 keys and each entry's int32 suffix in
-  one pass; the initial keys from one read of the text), CUB's radix
-  sort of the pairs over the keys' bits (``csrc/sa_sort.cu``, the one
-  library call, where ``andix`` has ``lax.sort``), and ``sa_rerank``
-  (one pass with a decoupled look-back: the bucket heads, the new ranks
-  and SA, the tied count, and in the tail rounds the still-tied entries
-  compacted in order; ``_extract_tied`` is its compaction over
-  rank[sa]).  A full round writes the new ranks and SA over the old.
-  The ``*_plain`` functions are the torch version the CPU runs;
-  ``Kernels(twin=True)`` runs the kernels' host twin (g++) on the CPU.
+* **The kernels.**  On a card every round is three or four calls:
+  ``sa_keys`` (``csrc/doubling.cu``: the int64 keys and each entry's int32
+  suffix in one pass; the initial keys from one read of the text; a tail
+  round's from the head carried beside each tied suffix and one gather),
+  CUB's radix sort of the pairs over the keys' bits (``csrc/sa_sort.cu``,
+  the one library call, where ``andix`` has ``lax.sort``), ``sa_rerank``
+  (one pass with a decoupled look-back: the bucket heads, SA, the tied
+  count, a full round's changed bits, and in the tail rounds the
+  still-tied entries compacted in order with their heads; the rank
+  scatter direct, or on large texts binned by destination part into the
+  sort's dead key buffer) and then ``sa_pair_scatter`` (the binned pairs
+  into rank, a window that L2 holds at a time; ``_scatter_plan`` is the
+  rule).  ``_extract_tied`` compacts the tied entries from the last full
+  round's changed bits and SA, with no read of rank.  A full round
+  writes the new ranks and SA over the old.  The ``*_plain`` functions
+  are the torch version the CPU runs; ``Kernels(twin=True)`` runs the
+  kernels' host twin (g++) on the CPU.
 * **The capped level buffer.**  Every rank array that still has ties is
   kept as a row of the level buffer (``push``), at most L rows: L is what
   the text can need (``levels_needed``) cut by the caller's level budget.
@@ -224,6 +230,20 @@ def _bucketed_round_plain(rank: torch.Tensor, sa: torch.Tensor,
 _KEY_WIDTH1, _KEY_CLAMPED, _KEY_WIDE, _KEY_FULL, _KEY_TAIL = range(5)
 _RR_FULL, _RR_TAIL, _RR_EXTRACT = range(3)
 
+# The partitioned rank scatter (csrc/doubling.cu): a part's window of rank
+# is 2^_WINDOW_SHIFT int32, 8 MB of the H100's 50 MB L2 (windows of 2^19
+# to 2^22 gave the same loop at 100,663,296 suffixes, 2^23 a slower one:
+# ``bench_kernels.py --what sa --windows``).  A rank of one window takes
+# the direct scatter.  So does a tail round over a rank of 2^24 or fewer
+# suffixes (64 MB, most of it in L2 for a tail's scatter; partitioned,
+# its tails were slower) or with fewer tied entries than one in
+# _TAIL_DIRECT_SPARSER suffixes (at 100,663,296 the two ways met near
+# one in 30).
+_WINDOW_SHIFT = 21
+_TAIL_DIRECT_MAX_N = 1 << 24
+_TAIL_DIRECT_SPARSER = 16
+_MAX_PARTS = 1024  # SD_MAX_PARTS
+
 
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
@@ -237,33 +257,92 @@ def _round_end_bit(n: int) -> int:
 _INITIAL_END_BIT = 63  # the initial keys are non-negative int64
 
 
+def _scatter_plan(n: int, m: int, tail: bool,
+                  parts: int | None = None) -> tuple[int, int]:
+    """(shift, parts) of the rank scatter of m entries into n suffixes:
+    parts of 2^shift suffixes, or (0, 0) for the direct scatter.  The
+    rule: windows of 2^_WINDOW_SHIFT where rank holds more than one and,
+    in a tail round, more than _TAIL_DIRECT_MAX_N suffixes and at least
+    n / _TAIL_DIRECT_SPARSER entries.  ``parts``
+    (the tests, ``bench_kernels.py``) forces at most that many parts in
+    every round, 0 the direct scatter."""
+    if parts is None:
+        shift = _WINDOW_SHIFT
+        if n <= 1 << shift or tail and (n <= _TAIL_DIRECT_MAX_N or
+                                        m * _TAIL_DIRECT_SPARSER < n):
+            return 0, 0
+    elif parts == 0:
+        return 0, 0
+    else:
+        if parts > _MAX_PARTS:
+            raise ValueError(f"doubling kernels: {parts} parts, at most "
+                             f"{_MAX_PARTS}")
+        shift = (-(-n // parts) - 1).bit_length()
+    return shift, -(-n >> shift)
+
+
+def _bit_words(n: int) -> int:
+    return -(-n // 32)
+
+
+def changed_bits_plain(rank: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
+    """The bits a full rerank leaves for the extract, from the ranks and
+    SA it wrote: entry t (bit t % 32 of int32 word t // 32) set where t ==
+    0 or rank[sa[t]] != rank[sa[t - 1]]."""
+    head = rank[sa.long()]
+    n = head.shape[0]
+    changed = torch.zeros(_bit_words(n) * 32, dtype=torch.int64,
+                          device=rank.device)
+    changed[0] = 1
+    changed[1:n] = (head[1:] != head[:-1]).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=rank.device)
+    words = (changed.view(-1, 32) << shifts).sum(1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
 class Kernels:
-    """The doubling loop's two hand kernels (``csrc/doubling.cu``) and its
+    """The doubling loop's hand kernels (``csrc/doubling.cu``) and its
     library sort (``csrc/sa_sort.cu``, CUB's radix sort of (key, int32
     suffix) pairs over the key's bits): ``keys`` (sa_keys: one int64 sort
-    key and the entry's suffix an entry), ``sort`` and ``rerank``
-    (sa_rerank: heads, tied count and in-order compaction in one pass
-    after the sort).  Launched on the tensors' card, or, with ``twin``,
-    the kernels' host twin (``doubling_cpu.cpp``, g++) on CPU tensors, at
-    the kernel's tiles or (``tiny``) at tiles of 64, with ``torch.sort``.
+    key and the entry's suffix an entry), ``sort``, ``rerank`` (sa_rerank:
+    heads, tied count, the changed bits or the in-order compaction, and
+    the rank scatter, direct or binned into pairs by part) and ``scatter``
+    (sa_pair_scatter: the binned pairs into rank).  Launched on the
+    tensors' card, or, with ``twin``, the kernels' host twin
+    (``doubling_cpu.cpp``, g++) on CPU tensors, at the kernel's tiles or
+    (``tiny``) at tiles of 64, with ``torch.sort``.
 
-    ``trace``, a list, receives one dict a round on the card: its kind
-    (initial, full, extract, tail), its entries, the tied count after it,
-    and the sort's and each kernel's ms from CUDA events
-    (``chip_smoke.py`` prints them)."""
+    A route carries what one loop passes between its rounds: ``bits``, the
+    last full rerank's changed bits, which the extract reads, and
+    ``heads``, the heads of the tied suffixes the last extract or tail
+    round compacted, which the next tail round's keys read.  ``parts``
+    forces the partitioned scatter's part count (``_scatter_plan``);
+    ``bin_order`` (the twin) bins and writes the pairs as they come (0),
+    reversed (1) or shuffled (2).
+
+    ``trace``, a list, receives one dict a round: its kind (initial, full,
+    extract, tail), its entries, the tied count after it, and on the card
+    the ms of its key build, sort, rerank and pair scatter from CUDA
+    events (``chip_smoke.py`` prints them; 0 for the twin)."""
 
     def __init__(self, twin: bool = False, tiny: bool = False,
-                 trace: list | None = None):
+                 trace: list | None = None, parts: int | None = None,
+                 bin_order: int = 0):
         self.twin = twin
         self.tiny = tiny
-        self.trace = None if twin else trace
+        self.trace = trace
+        self.parts = parts
+        self.bin_order = bin_order
+        self.bits: torch.Tensor | None = None
+        self.heads: torch.Tensor | None = None
 
     def _check(self, *tensors: torch.Tensor | None) -> None:
-        """Every tensor given (None skipped): contiguous, on the first's
-        device (the card, or the CPU for the twin), int64 keys or int32
+        """Every tensor given (None skipped): contiguous, on one device
+        (the card, or the CPU for the twin), int64 keys or int32
         otherwise, fewer than 2^31 entries."""
         want = "cpu" if self.twin else "cuda"
-        dev = tensors[0].device
+        dev = next(t for t in tensors if t is not None).device
         for t in tensors:
             if t is None:
                 continue
@@ -277,20 +356,34 @@ class Kernels:
             if t.numel() >= 1 << 31:
                 raise ValueError("doubling kernels: 2^31 or more entries")
 
+    def plan(self, n: int, m: int, tail: bool) -> tuple[int, int]:
+        return _scatter_plan(n, m, tail, self.parts)
+
     def keys(self, mode: int, src: torch.Tensor, sa_vals, m: int, k: int = 0,
-             base: int = 1):
+             base: int = 1, heads: torch.Tensor | None = None,
+             hist: torch.Tensor | None = None, plan=(0, 0)):
         """The int64 keys of m entries and their int32 suffixes: of the
         int32 text ``src`` (the initial modes), of the rank ``src`` at
-        every suffix (a full round) or at ``sa_vals`` (a tail round),
-        offset k."""
-        self._check(src, sa_vals)
-        if src.dtype != torch.int32 or (sa_vals is not None and
-                                        sa_vals.dtype != torch.int32):
-            raise ValueError("sa_keys: int32 text, ranks and suffixes")
+        every suffix (a full round) or at ``sa_vals``, whose heads are
+        ``heads`` (a tail round), offset k.  A tail round partitioned by
+        ``plan`` counts its suffixes by part into ``hist``."""
+        self._check(src, sa_vals, heads, hist)
+        if any(t is not None and t.dtype != torch.int32
+               for t in (src, sa_vals, heads, hist)):
+            raise ValueError("sa_keys: int32 text, ranks, suffixes, heads")
+        if mode == _KEY_TAIL and (heads is None or sa_vals is None or
+                                  heads.shape != sa_vals.shape):
+            raise ValueError("sa_keys: a tail round takes the heads of its "
+                             "suffixes")
+        if hist is not None and (mode != _KEY_TAIL or
+                                 hist.numel() < plan[1]):
+            raise ValueError("sa_keys: part counts of a tail round, one a "
+                             "part")
         key = torch.empty(m, dtype=torch.int64, device=src.device)
         vals = torch.empty(m, dtype=torch.int32, device=src.device)
-        args = (mode, src.data_ptr(), _ptr(sa_vals), m, src.shape[0], k,
-                base, key.data_ptr(), vals.data_ptr())
+        args = (mode, src.data_ptr(), _ptr(sa_vals), _ptr(heads), m,
+                src.shape[0], k, base, key.data_ptr(), vals.data_ptr(),
+                _ptr(hist), plan[0], plan[1])
         if self.twin:
             kernels.cpu_twin().andix_sa_keys_cpu(*args)
         elif m:
@@ -301,16 +394,18 @@ class Kernels:
         return key, vals
 
     def sort(self, key: torch.Tensor, vals: torch.Tensor, end_bit: int):
-        """(key, vals) sorted by the key's bits below ``end_bit``: CUB's
-        radix sort on the card, over ``key`` and ``vals`` themselves and
-        a second buffer of each; ``torch.sort`` and a gather for the
-        twin.  The inputs are not to be used afterwards."""
+        """(key, vals) sorted by the key's bits below ``end_bit``, and a
+        dead int64 buffer of m entries: CUB's radix sort on the card, over
+        ``key`` and ``vals`` themselves and a second buffer of each (the
+        dead one is the key buffer CUB's selector left unused);
+        ``torch.sort`` and a gather for the twin (the dead one is ``key``).
+        The inputs are not to be used afterwards."""
         if self.twin:
             sorted_keys, perm = torch.sort(key)
-            return sorted_keys, vals[perm]
+            return sorted_keys, vals[perm], key
         m = key.shape[0]
         if m < 2:
-            return key, vals
+            return key, vals, torch.empty_like(key)
         lib = kernels.cuda_lib()
         key_alt, vals_alt = torch.empty_like(key), torch.empty_like(vals)
         nbytes = lib.andix_sa_sort_temp_bytes(m, end_bit)
@@ -323,43 +418,102 @@ class Kernels:
                 vals_alt.data_ptr(), m, end_bit, temp.data_ptr(), nbytes,
                 ctypes.byref(selector), stream)
         kernels.check(err, "sa_sort")
-        return (key_alt, vals_alt) if selector.value else (key, vals)
+        if selector.value:
+            return key_alt, vals_alt, key
+        return key, vals, key_alt
 
     def rerank(self, mode: int, m: int, keys=None, order=None, slots=None,
-               rank=None, sa=None, out=None) -> torch.Tensor:
+               rank=None, sa=None, out=None, pairs=None, hist=None,
+               plan=(0, 0)) -> torch.Tensor:
         """One rerank pass over m entries (the pointers each mode takes
-        are in ``doubling_tile.cuh``'s SdArgs); ``out`` is the pair of
-        buffers the tied entries are compacted into.  Returns the tied
-        count, an int32 [1] on the tensors' device."""
-        dev = rank.device
-        so, vo = out if out is not None else (None, None)
-        self._check(rank, keys, order, slots, sa, so, vo)
+        are in ``doubling_tile.cuh``'s SdArgs).  A full rerank writes
+        ``bits``; the extract reads them.  ``out`` is the (slots,
+        suffixes, heads) the tied entries are compacted into.  With
+        ``plan`` partitioned, the ranks go as (suffix, head) pairs into
+        ``pairs`` (an int64 buffer of m or more) for ``scatter``, by the
+        part counts ``hist`` in a tail round.  Returns the tied count, an
+        int32 [1] on the tensors' device."""
+        outs = tuple(out) if out is not None else (None,) * 3
+        if mode == _RR_FULL:
+            words = _bit_words(m)
+            if self.bits is None or self.bits.shape[0] != words or \
+                    self.bits.device != keys.device:
+                self.bits = torch.empty(words, dtype=torch.int32,
+                                        device=keys.device)
+        elif mode == _RR_EXTRACT and (self.bits is None or
+                                      self.bits.shape[0] != _bit_words(m)):
+            raise ValueError("sa_rerank: the extract reads a full round's "
+                             "changed bits over its entries")
+        bits = self.bits if mode != _RR_TAIL else None
+        self._check(rank, keys, order, slots, sa, *outs, pairs, hist, bits)
         if keys is not None and keys.dtype != torch.int64 or any(
                 t is not None and t.dtype != torch.int32
-                for t in (order, slots, rank, sa, so, vo)):
+                for t in (order, slots, rank, sa, *outs, hist, bits)):
             raise ValueError("sa_rerank: int64 keys, int32 otherwise")
+        parts = plan[1] if pairs is not None else 0
+        if parts and pairs.numel() < m:
+            raise ValueError("sa_rerank: a pair buffer of fewer than m")
+        if parts and mode == _RR_TAIL and (hist is None or
+                                           hist.numel() < parts):
+            raise ValueError("sa_rerank: a partitioned tail takes its part "
+                             "counts")
+        dev = next(t for t in (rank, sa, keys) if t is not None).device
         if not m:
             return torch.zeros(1, dtype=torch.int32, device=dev)
         tied = torch.empty(1, dtype=torch.int32, device=dev)
         args = [mode, m] + [_ptr(t) for t in (keys, order, slots, rank, sa,
-                                               so, vo, tied)]
+                                               bits, *outs, tied, pairs)]
+        args += [plan[0], parts, _ptr(hist)]
         if self.twin:
-            kernels.cpu_twin().andix_sa_rerank_cpu(*args, int(self.tiny))
+            kernels.cpu_twin().andix_sa_rerank_cpu(*args, int(self.tiny),
+                                                   self.bin_order)
             return tied
         lib = kernels.cuda_lib()
-        scratch = torch.empty(max(lib.andix_sa_rerank_scratch_ints(m), 4),
-                              dtype=torch.int32, device=dev)
+        scratch = torch.empty(
+            max(lib.andix_sa_rerank_scratch_ints(m, parts), 4),
+            dtype=torch.int32, device=dev)
         with kernels.launch_on(dev) as stream:
             err = lib.andix_sa_rerank(*args, scratch.data_ptr(), stream)
         kernels.check(err, "sa_rerank")
         kernels.count_launch("sa_rerank", dev)
         return tied
 
+    def scatter(self, pairs: torch.Tensor, m: int, rank: torch.Tensor):
+        """rank[suffix] = head for the first m (suffix, head) pairs a
+        partitioned rerank left in ``pairs``."""
+        self._check(rank, pairs)
+        if rank.dtype != torch.int32 or pairs.numel() < m:
+            raise ValueError("sa_pair_scatter: int32 rank, m pairs")
+        if self.twin:
+            kernels.cpu_twin().andix_sa_pair_scatter_cpu(
+                pairs.data_ptr(), m, rank.data_ptr(), self.bin_order)
+        elif m:
+            with kernels.launch_on(rank.device) as stream:
+                err = kernels.cuda_lib().andix_sa_pair_scatter(
+                    pairs.data_ptr(), m, rank.data_ptr(), stream)
+            kernels.check(err, "sa_pair_scatter")
+            kernels.count_launch("sa_pair_scatter", rank.device)
+
+    def rank_pass(self, mode: int, m: int, clock, keys, order,
+                  slots=None, rank=None, sa=None, out=None, dead=None,
+                  hist=None, plan=(0, 0)) -> int:
+        """The rerank of a full or tail round and, when ``plan``
+        partitions it, the pair scatter through ``dead`` (the sort's dead
+        key buffer); marks the clock after each.  Returns the tied
+        count."""
+        tied = self.rerank(mode, m, keys, order, slots, rank, sa, out,
+                           dead if plan[1] else None, hist, plan)
+        clock.mark("rerank")
+        if plan[1]:
+            self.scatter(dead, m, rank)
+            clock.mark("scatter")
+        return int(tied)
+
     @contextmanager
     def round(self, kind: str, entries: int):
         """Times one round for ``trace``: the step marks the clock after
-        the key build and after the sort, and sets ``clock.tied``."""
-        clock = _RoundClock(self.trace is not None)
+        each pass, and sets ``clock.tied``."""
+        clock = _RoundClock(self.trace is not None and not self.twin)
         yield clock
         if self.trace is not None:
             self.trace.append(dict(kind=kind, entries=entries,
@@ -367,31 +521,31 @@ class Kernels:
 
 
 class _RoundClock:
-    """CUDA events at a round's start, after its key build, after its
-    sort and at its end (the extract pass: start and end only)."""
+    """CUDA events at a round's start and after each of its passes, each
+    named by the pass it ends (keys, sort, rerank, scatter)."""
+
+    PASSES = ("keys", "sort", "rerank", "scatter")
 
     def __init__(self, on: bool):
         self.events = []
         self.on = on
         self.tied = 0
-        self.mark()
+        self.mark("start")
 
-    def mark(self):
+    def mark(self, name: str):
         if self.on:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            self.events.append(ev)
+            self.events.append((name, ev))
 
     def read(self) -> dict[str, float]:
-        self.mark()
-        self.events[-1].synchronize()
-        e = self.events
-        if len(e) == 2:
-            return {"sort_ms": 0.0, "keys_ms": 0.0,
-                    "rerank_ms": e[0].elapsed_time(e[1])}
-        return {"sort_ms": e[1].elapsed_time(e[2]),
-                "keys_ms": e[0].elapsed_time(e[1]),
-                "rerank_ms": e[2].elapsed_time(e[3])}
+        out = {f"{p}_ms": 0.0 for p in self.PASSES}
+        if not self.on:
+            return out
+        self.events[-1][1].synchronize()
+        for (_, a), (name, b) in zip(self.events, self.events[1:]):
+            out[f"{name}_ms"] += a.elapsed_time(b)
+        return out
 
 
 _PLAIN = object()  # the route of the plain version, on any device
@@ -408,8 +562,8 @@ def _route(t: torch.Tensor, route):
 def _initial_ranks(sym: torch.Tensor, packed: bool = False,
                    base: int = BASE_WIDTH, route=None):
     """``_initial_ranks_plain`` through the kernels (a CUDA tensor, or the
-    twin's route): the keys, the sort, one rerank.  The symbols must be
-    non-negative (the texts' are)."""
+    twin's route): the keys, the sort, one full rerank.  The symbols must
+    be non-negative (the texts' are)."""
     route = _route(sym, route)
     if route is _PLAIN:
         return _initial_ranks_plain(sym, packed, base)
@@ -419,14 +573,15 @@ def _initial_ranks(sym: torch.Tensor, packed: bool = False,
     with route.round("initial", n) as clock:
         key, vals = route.keys(mode, sym.to(torch.int32).contiguous(), None,
                                n, base=base)
-        clock.mark()
-        key, vals = route.sort(key, vals, _INITIAL_END_BIT)
-        clock.mark()
+        clock.mark("keys")
+        key, vals, dead = route.sort(key, vals, _INITIAL_END_BIT)
+        clock.mark("sort")
         rank = torch.empty(n, dtype=torch.int32, device=sym.device)
         sa = torch.empty_like(rank)
-        tied = int(route.rerank(_RR_FULL, n, key, vals, rank=rank, sa=sa))
-        clock.tied = tied
-    return rank, tied, sa
+        clock.tied = route.rank_pass(_RR_FULL, n, clock, key, vals,
+                                     rank=rank, sa=sa, dead=dead,
+                                     plan=route.plan(n, n, False))
+    return rank, clock.tied, sa
 
 
 def _doubling_round(rank: torch.Tensor, sa: torch.Tensor, k: int,
@@ -440,52 +595,72 @@ def _doubling_round(rank: torch.Tensor, sa: torch.Tensor, k: int,
     n = rank.shape[0]
     with route.round("full", n) as clock:
         key, vals = route.keys(_KEY_FULL, rank, None, n, k)
-        clock.mark()
-        key, vals = route.sort(key, vals, _round_end_bit(n))
-        clock.mark()
-        tied = int(route.rerank(_RR_FULL, n, key, vals, rank=rank, sa=sa))
-        clock.tied = tied
-    return rank, tied, sa
+        clock.mark("keys")
+        key, vals, dead = route.sort(key, vals, _round_end_bit(n))
+        clock.mark("sort")
+        clock.tied = route.rank_pass(_RR_FULL, n, clock, key, vals,
+                                     rank=rank, sa=sa, dead=dead,
+                                     plan=route.plan(n, n, False))
+    return rank, clock.tied, sa
 
 
 def _extract_tied(rank: torch.Tensor, sa: torch.Tensor, tied: int,
-                  route=None):
-    """``_extract_tied_plain`` through the rerank's compaction over
-    rank[sa] (the ``tied`` entries the last round counted): int32 slots,
-    ascending, and their suffixes."""
+                  route=None, bits: torch.Tensor | None = None):
+    """``_extract_tied_plain`` through the kernels: the tied slots
+    (int32, ascending) and their suffixes, compacted from SA and the
+    changed bits of the full rerank that wrote it (the route's, or
+    ``bits``: ``changed_bits_plain``), with no read of ``rank``; the
+    ``tied`` entries' heads go to ``route.heads``."""
     route = _route(rank, route)
     if route is _PLAIN:
         return _extract_tied_plain(rank, sa)
-    n = rank.shape[0]
-    out = (torch.empty(tied, dtype=torch.int32, device=rank.device),
-           torch.empty(tied, dtype=torch.int32, device=rank.device))
+    if bits is not None:
+        route.bits = bits
+    n = sa.shape[0]
+    out = tuple(torch.empty(tied, dtype=torch.int32, device=sa.device)
+                for _ in range(3))
     with route.round("extract", n) as clock:
-        route.rerank(_RR_EXTRACT, n, rank=rank, sa=sa, out=out)
+        route.rerank(_RR_EXTRACT, n, sa=sa, out=out)
+        clock.mark("rerank")
         clock.tied = tied
-    return out
+    route.heads = out[2]
+    return out[0], out[1]
 
 
 def _bucketed_round(rank: torch.Tensor, sa: torch.Tensor,
                     slots: torch.Tensor, sa_vals: torch.Tensor, k: int,
                     route=None):
-    """``_bucketed_round_plain`` through the kernels: the tail keys, the
-    sort, one rerank that scatters into ``sa`` and ``rank`` in place and
-    compacts the still-tied entries in order."""
+    """``_bucketed_round_plain`` through the kernels: the tail keys (from
+    the heads the route carries beside ``sa_vals``), the sort, one rerank
+    that scatters into ``sa`` and ``rank`` in place (partitioned by the
+    route's plan: the keys count the parts) and compacts the still-tied
+    entries in order: their slots into a new buffer, their suffixes and
+    heads over ``sa_vals`` and the carried heads."""
     route = _route(rank, route)
     if route is _PLAIN:
         return _bucketed_round_plain(rank, sa, slots, sa_vals, k)
     m = slots.shape[0]
     n = rank.shape[0]
+    heads = route.heads
+    if heads is None or heads.shape != sa_vals.shape:
+        raise ValueError("tail round: the route carries no heads of these "
+                         "suffixes (run the extract or the round before "
+                         "through it)")
+    plan = route.plan(n, m, True)
+    hist = (torch.empty(plan[1], dtype=torch.int32, device=rank.device)
+            if plan[1] else None)
     with route.round("tail", m) as clock:
-        key, vals = route.keys(_KEY_TAIL, rank, sa_vals, m, k)
-        clock.mark()
-        key, vals = route.sort(key, vals, _round_end_bit(n))
-        clock.mark()
-        out = (torch.empty_like(slots), torch.empty_like(sa_vals))
-        tied = int(route.rerank(_RR_TAIL, m, key, vals, slots, rank, sa,
-                                out))
+        key, vals = route.keys(_KEY_TAIL, rank, sa_vals, m, k, heads=heads,
+                               hist=hist, plan=plan)
+        clock.mark("keys")
+        key, vals, dead = route.sort(key, vals, _round_end_bit(n))
+        clock.mark("sort")
+        out = (torch.empty_like(slots), sa_vals, heads)
+        tied = route.rank_pass(_RR_TAIL, m, clock, key, vals, slots, rank,
+                               sa, out, dead, hist, plan)
         clock.tied = tied
-    return tied, out[0][:tied], out[1][:tied]
+    route.heads = heads[:tied]
+    return tied, out[0][:tied], sa_vals[:tied]
 
 
 def levels_needed(length: int, packed: bool = False,
@@ -555,9 +730,12 @@ def sa_loop_plain(sym: torch.Tensor, packed: bool, L: int, base: int):
 
 
 def sa_loop_cpu_twin(sym: torch.Tensor, packed: bool, L: int, base: int,
-                     tiny: bool = False):
-    """``sa_loop`` with the kernels' host twin (g++) on a CPU text."""
-    return sa_loop(sym, packed, L, base, Kernels(twin=True, tiny=tiny))
+                     tiny: bool = False, parts: int | None = None):
+    """``sa_loop`` with the kernels' host twin (g++) on a CPU text
+    (``parts``: the rank scatter partitioned into at most that many parts
+    in every round)."""
+    return sa_loop(sym, packed, L, base, Kernels(twin=True, tiny=tiny,
+                                                 parts=parts))
 
 
 def _lcp_from_level_buffer(sa, levels, lev_count, sym, base: int,

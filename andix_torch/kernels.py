@@ -55,7 +55,7 @@ _NVCC_SOURCE_FLAGS = {"bootstrap.cu": ["-fmad=false"]}
 launches = {"flag_scan": 0, "chain_walk_flat": 0, "chain_walk_flat_sx": 0,
             "plcp_lcp_hybrid": 0, "range_min_build": 0, "replay": 0,
             "evpack_encode": 0, "bootstrap_resample": 0, "sa_keys": 0,
-            "sa_rerank": 0}
+            "sa_rerank": 0, "sa_pair_scatter": 0}
 launches_by_card: dict[int, dict[str, int]] = {}
 
 _cuda_lib = None
@@ -100,13 +100,16 @@ _REPLAY_ARGTYPES = ([_P, _P, ctypes.c_int64] + [_P] * 7 + [_I] * 3
 # twin its block-size switch
 _EVPACK_ARGTYPES = [_P] * 5 + [ctypes.c_int64] * 2 + [_I] * 2 + [_P]
 # andix_sa_keys's (doubling.cu): the mode, the text or rank, the tail's
-# suffixes, m, n, k, the base width, the keys and the suffixes out;
-# andix_sa_rerank's: the mode, m, the sorted keys and suffixes, slots,
-# rank, sa, the two compaction outputs and the tied count.  The CUDA
-# entries add the stream (the rerank its scratch first), the host twin
-# its tile switch
-_SA_KEYS_ARGTYPES = [_I, _P, _P] + [ctypes.c_int64] * 3 + [_I, _P, _P]
-_SA_RERANK_ARGTYPES = [_I, ctypes.c_int64] + [_P] * 8
+# suffixes and heads, m, n, k, the base width, the keys and the suffixes
+# out, the part counts, the part shift and the parts; andix_sa_rerank's:
+# the mode, m, the sorted keys and suffixes, slots, rank, sa, the changed
+# bits, the three compaction outputs, the tied count, the pairs, the part
+# shift and the parts, the part counts.  The CUDA entries add the stream
+# (the rerank its scratch first), the host twin of the rerank its tile
+# switch and the pairs' order
+_SA_KEYS_ARGTYPES = ([_I, _P, _P, _P] + [ctypes.c_int64] * 3
+                     + [_I, _P, _P, _P, _I, _I])
+_SA_RERANK_ARGTYPES = [_I, ctypes.c_int64] + [_P] * 11 + [_I, _I, _P]
 
 
 def reset_launches() -> None:
@@ -251,10 +254,12 @@ def _load_cuda():
     lib.andix_bootstrap_resample.restype = _I
     lib.andix_sa_keys.argtypes = _SA_KEYS_ARGTYPES + [_P]
     lib.andix_sa_keys.restype = _I
-    lib.andix_sa_rerank_scratch_ints.argtypes = [ctypes.c_int64]
+    lib.andix_sa_rerank_scratch_ints.argtypes = [ctypes.c_int64, _I]
     lib.andix_sa_rerank_scratch_ints.restype = ctypes.c_int64
     lib.andix_sa_rerank.argtypes = _SA_RERANK_ARGTYPES + [_P, _P]
     lib.andix_sa_rerank.restype = _I
+    lib.andix_sa_pair_scatter.argtypes = [_P, ctypes.c_int64, _P, _P]
+    lib.andix_sa_pair_scatter.restype = _I
     lib.andix_sa_sort_temp_bytes.argtypes = [ctypes.c_int64, _I]
     lib.andix_sa_sort_temp_bytes.restype = ctypes.c_int64
     lib.andix_sa_sort.argtypes = ([_P] * 4 + [ctypes.c_int64, _I, _P,
@@ -323,6 +328,8 @@ def _load_cpu_twin():
     lib.andix_bootstrap_resample_cpu.restype = _I
     lib.andix_sa_keys_cpu.argtypes = _SA_KEYS_ARGTYPES
     lib.andix_sa_keys_cpu.restype = _I
-    lib.andix_sa_rerank_cpu.argtypes = _SA_RERANK_ARGTYPES + [_I]
+    lib.andix_sa_rerank_cpu.argtypes = _SA_RERANK_ARGTYPES + [_I, _I]
     lib.andix_sa_rerank_cpu.restype = _I
+    lib.andix_sa_pair_scatter_cpu.argtypes = [_P, ctypes.c_int64, _P, _I]
+    lib.andix_sa_pair_scatter_cpu.restype = _I
     return lib

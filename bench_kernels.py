@@ -7,8 +7,9 @@ Run from the repository root, on a machine with a card:
 
     python3 bench_kernels.py [--tree DIR] [--reps 20]
                              [--what all | a list of
-                                     scan,walk,plcp,rmq,replay,sa]
+                                     scan,walk,plcp,rmq,replay,sa,cli]
                              [--segments 1,8,16,32]
+                             [--windows 19,20,21,22,23,24]
 
 ``--tree DIR`` imports ``andix_torch`` from DIR, a checkout of another
 commit (for example one unpacked with ``git archive``), so two commits
@@ -31,10 +32,20 @@ every level row the text needs) over the padded joint texts of 8 x 1
 Mbp (2^24) and 8 x 5 Mbp (100,663,296) and of both clonal families, one
 call cold (the allocator's cache emptied) and then warm, with the
 device bytes one call allocates at its peak above what it was given (in
-a tree from before the doubling kernels, that is the torch loop).  Each kernel is run once before its timed launches.  ``--split`` also
-prints the device time of each launch of one PLCP call, from
-torch.profiler.  Prints the card's name and power limit first, one line
-per measurement, and one JSON object last; exits
+a tree from before the doubling kernels, that is the torch loop); with
+``--windows`` (a tree with the partitioned rank scatter) the warm loop
+again with the scatter forced into windows of 2^s suffixes for each s
+listed and forced direct, each with one traced run's full-round and
+tail-round rerank and pair-scatter ms and each tail round's entries and
+ms, so the window and the tail rule can be read off.  ``--what cli``
+(not in ``all``) runs the CLI on the 8 x 5 Mbp family under
+``ANDIX_INDEX=subject`` and ``joint``, three times each in turns, and
+prints each run's wall with its "sx: index build" or "SA doubling"
+phase (``ANDIX_PROF_FILE``, synchronized; the block's loop is a cold
+call there).  Each kernel is run once before its timed launches.
+``--split`` also prints the device time of each launch of one PLCP
+call, from torch.profiler.  Prints the card's name and power limit
+first, one line per measurement, and one JSON object last; exits
 non-zero without a card.
 """
 
@@ -74,12 +85,16 @@ def main(argv=None) -> int:
     ap.add_argument("--segments", default="",
                     help="comma-separated query segments K at which to "
                     "time the replay too")
+    ap.add_argument("--windows", default="",
+                    help="comma-separated log2 window sizes at which to "
+                    "time the doubling loop's partitioned scatter too")
     ap.add_argument("--what", default="all",
                     help="all, or a comma-separated list of scan, walk, "
-                    "plcp, rmq, replay, sa")
+                    "plcp, rmq, replay, sa, cli")
     args = ap.parse_args(argv)
     what = set(args.what.split(","))
-    if not what <= {"all", "scan", "walk", "plcp", "rmq", "replay", "sa"}:
+    if not what <= {"all", "scan", "walk", "plcp", "rmq", "replay", "sa",
+                    "cli"}:
         ap.error(f"--what {args.what}")
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
@@ -145,7 +160,10 @@ def main(argv=None) -> int:
         segments = [int(k) for k in args.segments.split(",") if k]
         out.update(_replay(cs, dev, max(1, args.reps // 4), segments))
     if wants("sa"):
-        out.update(_sa(cs, dev, max(1, args.reps // 4)))
+        windows = [int(w) for w in args.windows.split(",") if w]
+        out.update(_sa(cs, dev, max(1, args.reps // 4), windows))
+    if "cli" in what:
+        out.update(_cli(cs))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -188,11 +206,13 @@ def _plcp_rmq(cs, dev, reps, do_plcp, do_rmq, split=False):
     return out
 
 
-def _sa(cs, dev, reps):
+def _sa(cs, dev, reps, windows=()):
     """The doubling loop over ``chip_smoke``'s padded joint texts (and the
     repeat family's): one cold call (the allocator's cache emptied first,
     as the CLI's block build meets it; host clock to a synchronize), the
-    warm call's ms and its peak device bytes above its inputs."""
+    warm call's ms and its peak device bytes above its inputs; then at
+    each window of ``windows`` and with the direct scatter
+    (``_sa_windows``)."""
     from andix_torch.esa import doubling
 
     out = {}
@@ -221,8 +241,69 @@ def _sa(cs, dev, reps):
         out[f"sa_loop_cold_ms {label}"] = cold
         out[f"sa_loop_ms {label}"] = ms
         out[f"sa_loop_peak_bytes {label}"] = peak
+        if windows:
+            out.update(_sa_windows(cs, label, sym, L, base, reps, windows))
         del sym
         torch.cuda.empty_cache()
+    return out
+
+
+def _sa_windows(cs, label, sym, L, base, reps, windows):
+    """The warm loop with the rank scatter forced into windows of 2^s
+    suffixes (every full and tail round), and forced direct (window
+    "direct"); for each, one traced run's rerank and pair-scatter ms
+    summed over the full rounds and over the tail rounds, and each tail
+    round's entries with its rerank + scatter ms."""
+    from andix_torch.esa import doubling
+
+    n = sym.shape[0]
+    out = {}
+    for w in [None] + list(windows):
+        parts = 0 if w is None else -(-n >> w)
+        if parts > doubling._MAX_PARTS:
+            continue
+        name = "direct" if w is None else f"2^{w} ({parts} parts)"
+        ms = cs.cuda_ms(lambda: doubling.sa_loop(
+            sym, True, L, base, doubling.Kernels(parts=parts)), reps)
+        trace = []
+        doubling.sa_loop(sym, True, L, base,
+                         doubling.Kernels(parts=parts, trace=trace))
+        sums = {}
+        tails = []
+        for r in trace:
+            kind = "tail" if r["kind"] == "tail" else "full"
+            for key in ("keys_ms", "rerank_ms", "scatter_ms"):
+                sums[f"{kind} {key}"] = sums.get(f"{kind} {key}", 0.0) + r[key]
+            if kind == "tail":
+                tails.append(f"{r['entries']}:"
+                             f"{r['rerank_ms'] + r['scatter_ms']:.4f}")
+        print(f"  sa_loop {label} window {name}: warm {ms:.4f} ms; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sums.items())
+              + f"; tail rounds (entries:ms) {' '.join(tails)}", flush=True)
+        out[f"sa_loop_ms {label} window {name}"] = ms
+    return out
+
+
+def _cli(cs, runs=3):
+    """The CLI over the 8 x 5 Mbp family (``chip_smoke``'s) under each
+    schedule, ``runs`` times in turns after one untraced run: each run's
+    wall and its index-build or SA-doubling phase seconds."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = cs.write_fasta(tmp, cs.make_family(8, 5_000_000))
+        cs.run_cli(["--backend", "cuda", "--progress=never", "-m", "JC"]
+                   + paths)
+        for run in range(runs):
+            for index in ("subject", "joint"):
+                _, _, _, wall, phases = cs._cli_run(
+                    paths, index, tmp, f"8x5Mbp {index} run {run + 1}")
+                picked = [p.split("] ", 1)[-1] for p in phases
+                          if "SA doubling" in p or "index build" in p]
+                print(f"cli 8x5Mbp ANDIX_INDEX={index} run {run + 1}: wall "
+                      f"{wall:.3f} s; {'; '.join(picked)}", flush=True)
+                out[f"cli_wall_s 8x5Mbp {index} run {run + 1}"] = wall
     return out
 
 

@@ -21,10 +21,12 @@ line each; any failed phase raises and the script exits non-zero:
    8 x 1 Mbp clonal family (g1 = g0) with every level row it needs (its
    LCP also equal to the host Φ LCP) and cut to andix's 14 rows (entries
    left open, the overflow flag up), LCP and overflow flag; on each of
-   those texts first the doubling loop's two kernels (sa_keys,
-   sa_rerank) against the plain loop: SA, every level row, the level
-   count and the overflow flag, with each round's kind, entries, tied
-   count, sort ms and kernel ms and the kernels' byte bound; the
+   those texts first the doubling loop's kernels (sa_keys, sa_rerank
+   and its partitioned rank scatter's sa_pair_scatter) against the plain
+   loop: SA, every level row, the level count and the overflow flag,
+   with each round's kind, entries, tied count and the ms of its key
+   build, sort, rerank and pair scatter and the kernels' byte bound; one
+   full round's pairs scattered by the kernel and by index_put_; the
    range-min build over the 8 x 1 and 8 x 5 Mbp joint LCPs, every array
    it makes; print the times, the walks' counts and each kernel's byte
    bound from the data of its run;
@@ -57,7 +59,9 @@ line each; any failed phase raises and the script exits non-zero:
    LCP that a 14-row budget retreats to; the subject schedule with one
    subject a group, whose groups of g0 and g1 stall and go to the joint
    schedule; the same bytes from both; the block's SA and LCP on the CPU
-   backend too; and an 8 x 50 kbp copy on both schedules, card and CPU;
+   backend too, and its doubling loop's kernels against the plain loop
+   (SA, all 20 level rows, count, flag), round by round timed; and an
+   8 x 50 kbp copy on both schedules, card and CPU;
    before the repeat family, the count-in-loop replay (``phase_replay``):
    the kernel against its plain version over every lane of the 8 x 50 kbp
    family and of 8 x 1 Mbp (JC and LogDet) and of the small family's
@@ -610,10 +614,11 @@ def sa_kernel_bytes(trace) -> tuple[int, int]:
 
 def _sa_rounds(label, sym, base, L):
     """One traced run of the doubling loop's kernels (each round's kind,
-    entries, tied count after it, the sort's and each kernel's ms from
-    CUDA events) after an untraced one (the allocator's warm-up), then
-    the loop timed untraced.  Returns a dict of the sums, the loop's ms
-    and the kernels' byte bounds."""
+    entries, tied count after it, and the ms of its key build, sort,
+    rerank and pair scatter from CUDA events) after an untraced one (the
+    allocator's warm-up), then the loop timed untraced.  Returns a dict of
+    the sums (``rerank_ms``: the rerank function, its pair scatter
+    included), the loop's ms and the kernels' byte bounds."""
     from andix_torch.esa import doubling
 
     doubling.sa_loop(sym, True, L, base)
@@ -623,14 +628,16 @@ def _sa_rounds(label, sym, base, L):
     del sa, levels
     for i, r in enumerate(trace):
         say(f"  {label} round {i}: {r['kind']}, {r['entries']} entries, "
-            f"{r['tied']} tied after; sort {r['sort_ms']:.4f} ms, sa_keys "
-            f"{r['keys_ms']:.4f} ms, sa_rerank {r['rerank_ms']:.4f} ms")
+            f"{r['tied']} tied after; sa_keys {r['keys_ms']:.4f} ms, sort "
+            f"{r['sort_ms']:.4f} ms, sa_rerank {r['rerank_ms']:.4f} ms, "
+            f"sa_pair_scatter {r['scatter_ms']:.4f} ms")
     ms = cuda_ms(lambda: doubling.sa_loop(sym, True, L, base), 3,
                  warm=False)
     kb, rb = sa_kernel_bytes(trace)
     out = {"loop_ms": ms, "rounds": len(trace), "levels": cnt}
-    for key in ("sort_ms", "keys_ms", "rerank_ms"):
+    for key in ("sort_ms", "keys_ms", "rerank_ms", "scatter_ms"):
         out[key] = sum(r[key] for r in trace)
+    out["rerank_ms"] += out["scatter_ms"]
     out["keys_bound_ms"] = kb / HBM_BYTES_PER_S * 1e3
     out["rerank_bound_ms"] = rb / HBM_BYTES_PER_S * 1e3
     kernels_ms = out["keys_ms"] + out["rerank_ms"]
@@ -638,8 +645,9 @@ def _sa_rounds(label, sym, base, L):
     say(f"  {label} loop: {ms:.4f} ms untraced ({len(trace)} rounds, {cnt} "
         f"levels); traced: sorts {out['sort_ms']:.4f} ms, sa_keys "
         f"{out['keys_ms']:.4f} ms (bound {out['keys_bound_ms']:.4f} ms, {kb} "
-        f"B), sa_rerank {out['rerank_ms']:.4f} ms (bound "
-        f"{out['rerank_bound_ms']:.4f} ms, {rb} B): kernels "
+        f"B), sa_rerank {out['rerank_ms']:.4f} ms with its pair scatter "
+        f"{out['scatter_ms']:.4f} ms (bound {out['rerank_bound_ms']:.4f} "
+        f"ms, {rb} B): kernels "
         f"{100 * (out['keys_bound_ms'] + out['rerank_bound_ms']) / kernels_ms:.2f}"
         f"% of their bound; sa_bound {loop_bound:.4f} ms ({loop_bytes} B) = "
         f"{100 * loop_bound / ms:.3f}% of the loop")
@@ -654,9 +662,12 @@ def _sort_yardstick(label, sym, base):
     same sorted keys and the suffixes in an order that those keys
     follow.  CUB sorts in place, so each of its timed calls first copies
     the keys and suffixes back; the copies are timed alone and taken
-    off.  Also timed: the full rerank's random scatter alone, torch's
-    ``index_put_`` of n int32 through the sorted order.  Returns (CUB ms,
-    torch.sort ms)."""
+    off.  Then that round's rank scatter: the rerank pass with the
+    partitioned scatter (binning the pairs into the sort's dead key
+    buffer) and with the direct one, and sa_pair_scatter over the binned
+    pairs against its plain version, ``index_put_`` of the same pairs
+    (the library call too), held equal.  Returns (CUB ms, torch.sort ms,
+    the pair scatter's dict)."""
     from andix_torch.esa import doubling
 
     route = doubling.Kernels()
@@ -665,7 +676,7 @@ def _sort_yardstick(label, sym, base):
     key, vals = route.keys(doubling._KEY_FULL, rank, None, n, base)
     end_bit = doubling._round_end_bit(n)
     kc, vc = key.clone(), vals.clone()
-    got_k, got_v = route.sort(kc, vc, end_bit)
+    got_k, got_v, _ = route.sort(kc, vc, end_bit)
     ref_k, _ = torch.sort(key)
     if not torch.equal(got_k, ref_k) or not torch.equal(
             key[got_v.long()], ref_k):
@@ -680,14 +691,44 @@ def _sort_yardstick(label, sym, base):
     cub_ms = cuda_ms(lambda: (copies(), route.sort(kc, vc, end_bit)),
                      5) - copy_ms
     torch_ms = cuda_ms(lambda: torch.sort(key), 5)
-    # the rerank's floor: its scatter alone, as torch does it
-    order = torch.sort(key)[1]
-    scatter_ms = cuda_ms(lambda: rank.index_put_((order,), vals), 5)
     say(f"  {label} sort of one full round's keys ({end_bit} bits): CUB "
         f"pairs (int64 key, int32 suffix) {cub_ms:.4f} ms, torch.sort "
-        f"{torch_ms:.4f} ms; same sorted keys; its scatter alone "
-        f"(rank.index_put_ through the sorted order) {scatter_ms:.4f} ms")
-    return cub_ms, torch_ms
+        f"{torch_ms:.4f} ms; same sorted keys")
+    del kc, vc
+    # that round's rank scatter, partitioned by the rule, and direct
+    sk, sv, dead = route.sort(key, vals, end_bit)
+    plan = route.plan(n, n, False)
+    sa = torch.empty_like(rank)
+    route.rerank(doubling._RR_FULL, n, sk, sv, rank=rank, sa=sa, pairs=dead,
+                 plan=plan)
+    got = torch.zeros_like(rank)
+    route.scatter(dead, n, got)
+    pairs = dead.view(torch.int32)[: 2 * n].view(n, 2)
+    dest, head = pairs[:, 0].long(), pairs[:, 1].contiguous()
+    ref = torch.zeros_like(rank)
+    ref.index_put_((dest,), head)
+    torch.cuda.synchronize()
+    err = max_abs_err([got], [ref])
+    if err:
+        raise AssertionError(f"sa_pair_scatter {label}: max_abs_err {err}")
+    bin_ms = cuda_ms(lambda: route.rerank(
+        doubling._RR_FULL, n, sk, sv, rank=rank, sa=sa, pairs=dead,
+        plan=plan), 5)
+    direct = doubling.Kernels(parts=0)
+    direct_ms = cuda_ms(lambda: direct.rerank(
+        doubling._RR_FULL, n, sk, sv, rank=got, sa=sa), 5)
+    scatter_ms = cuda_ms(lambda: route.scatter(dead, n, got), 5)
+    plain_ms = cuda_ms(lambda: ref.index_put_((dest,), head), 5)
+    nbytes = 12 * n
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"  {label} one full round's rank scatter, {plan[1]} parts of "
+        f"2^{plan[0]}: rerank binning {bin_ms:.4f} ms + sa_pair_scatter "
+        f"{scatter_ms:.4f} ms = {bin_ms + scatter_ms:.4f} ms against the "
+        f"direct rerank {direct_ms:.4f} ms; sa_pair_scatter == index_put_ "
+        f"of the same pairs ({plain_ms:.4f} ms); its bound {bound_ms:.4f} "
+        f"ms ({nbytes} B) = {100 * bound_ms / scatter_ms:.2f}%")
+    return cub_ms, torch_ms, {"ms": scatter_ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "err": err}
 
 
 def _hold_sa(label, sym, base, cap, got):
@@ -722,8 +763,8 @@ def _hold_sa(label, sym, base, cap, got):
                                                              base), 1,
                               warm=False)
     out["err"] = err
-    out["cub_sort_ms"], out["torch_sort_ms"] = _sort_yardstick(label, sym,
-                                                               base)
+    out["cub_sort_ms"], out["torch_sort_ms"], out["scatter"] = \
+        _sort_yardstick(label, sym, base)
     say(f"  {label}: plain loop {out['plain_ms']:.4f} ms, kernels' loop "
         f"{out['loop_ms']:.4f} ms; this check {time.time() - t0:.1f} s")
     return out
@@ -1084,7 +1125,8 @@ def phase_main_path(tmp, card):
         f"symbols)")
     if min(launches["flag_scan"], launches["chain_walk_flat"],
            launches["plcp_lcp_hybrid"], launches["range_min_build"],
-           launches["sa_keys"], launches["sa_rerank"]) <= 0 \
+           launches["sa_keys"], launches["sa_rerank"],
+           launches["sa_pair_scatter"]) <= 0 \
             or launches["chain_walk_flat_sx"]:
         raise AssertionError(f"the joint path's kernels did not launch: "
                              f"{launches}")
@@ -1120,7 +1162,8 @@ def phase_full_size(tmp, card):
         raise AssertionError(f"8x5Mbp subject run launches {sx_launches}: "
                              f"rows fell back to the joint walk")
     if min(sx_launches["sa_keys"], sx_launches["sa_rerank"],
-           launches_j["sa_keys"], launches_j["sa_rerank"]) <= 0:
+           sx_launches["sa_pair_scatter"], launches_j["sa_keys"],
+           launches_j["sa_rerank"], launches_j["sa_pair_scatter"]) <= 0:
         raise AssertionError(f"8x5Mbp: the doubling kernels did not launch: "
                              f"subject {sx_launches}, joint {launches_j}")
     say(f"  8x5Mbp: ANDIX_INDEX=subject PHYLIP == ANDIX_INDEX=joint PHYLIP, "
@@ -1759,10 +1802,11 @@ def phase_repeat(tmp, card):
     SA and LCP from the kernel equal those of a backend whose budget
     holds andix's 14 rows, which overflows and retreats to the host Φ LCP
     (its phase lines show it), and those of the CPU backend (the plain
-    versions); then the doubling loop's rounds on the block's text
-    (``_sa_rounds``).  The whole CLI on the CPU at this size would spend most of
-    the script's time limit in the plain flag scans, so the CLI's bytes
-    are held to the CPU's on the 8 x 50 kbp copy."""
+    versions); then the doubling loop's kernels on the block's text held
+    to the plain loop and timed round by round (``_hold_sa``).  The whole
+    CLI on the CPU at this size would spend most of the script's time
+    limit in the plain flag scans, so the CLI's bytes are held to the
+    CPU's on the 8 x 50 kbp copy."""
     from andix_torch import kernels
     from andix_torch import subject_pipeline as sp
     from andix_torch.esa import backend, doubling, joint
@@ -1879,16 +1923,18 @@ def phase_repeat(tmp, card):
     del ctxs, sa_k, lcp_k, sa_h, lcp_h, sa_c, lcp_c
     torch.cuda.empty_cache()
 
-    # the doubling loop's rounds on the block's text: the kernels' and the
-    # sorts' share of the 20-level loop (its SA is held to the CPU's above)
+    # the doubling loop on the block's text held to the plain loop (SA,
+    # all 20 level rows, count, flag), then its rounds timed
     padded = bucket(n)
     sym = torch.from_numpy(pad_symbols(layout.sym, padded)).to(
         torch.device("cuda", 0))
     base = doubling.wide_base_width(len(layout.genome_ids), True)
     t0 = time.time()
-    _sa_rounds("8x5Mbp repeat block", sym, base, doubling.plan_levels(
-        padded, True, base, None, True, "hybrid")[0])
-    say(f"  8x5Mbp repeat block rounds: {time.time() - t0:.1f} s")
+    got = doubling.sa_loop(sym, True, doubling.plan_levels(
+        padded, True, base, None, True, "hybrid")[0], base)
+    _hold_sa("8x5Mbp repeat block", sym, base, None, got)
+    del got
+    say(f"  8x5Mbp repeat block loop: {time.time() - t0:.1f} s")
     del sym
 
 
@@ -2166,6 +2212,14 @@ def main() -> int:
          "ms": sa_t["rerank_ms"], "plain_ms": sa_t["plain_ms"],
          "bound_ms": sa_t["rerank_bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "sa_pair_scatter", "route": "cuda",
+         "source": "andix_torch/csrc/doubling.cu",
+         "replaces": "andix/esa/doubling.py:191",
+         "launches": launches["sa_pair_scatter"],
+         "max_abs_err": sa_t["scatter"]["err"],
+         "ms": sa_t["scatter"]["ms"], "plain_ms": sa_t["scatter"]["plain_ms"],
+         "bound_ms": sa_t["scatter"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": sa_t["scatter"]["plain_ms"]},
     ]}
     say(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps(table))

@@ -790,23 +790,46 @@ def test_sa_keys_initial_kernel_equals_plain(cuda, mode, base):
 def test_sa_keys_round_kernel_equals_plain(cuda, n, tail):
     """sa_keys' full and tail modes == the plain key rank[i] (n + 1) +
     rank[i + k] + 1 (0 past the end), at i = every suffix or the given
-    suffixes, for k below and above n / 2; each entry's suffix i as its
-    sort value."""
+    suffixes (whose heads rank[i] the tail reads beside them), for k
+    below and above n / 2 and k = 3 (off the 16-byte grid); each entry's
+    suffix i as its sort value; the tail's part counts == a bincount."""
     rng = np.random.default_rng(n)
     rank = rng.integers(0, n, n).astype(np.int32)
     vals = (rng.permutation(n)[: max(1, n // 3)] if tail
             else np.arange(n)).astype(np.int32)
-    for k in (1, max(1, n // 2 + 1), n):
+    for k in (1, 3, max(1, n // 2 + 1), n):
         i = vals.astype(np.int64)
         r2 = np.where(i + k < n, rank[np.minimum(i + k, n - 1)].astype(
             np.int64) + 1, 0)
         ref = rank[i].astype(np.int64) * (n + 1) + r2
+        plan = doubling._scatter_plan(n, len(vals), True, 5)
+        hist = torch.empty(plan[1], dtype=torch.int32, device=cuda)
         got, sfx = doubling.Kernels().keys(
             doubling._KEY_TAIL if tail else doubling._KEY_FULL,
             torch.from_numpy(rank).to(cuda),
-            torch.from_numpy(vals).to(cuda) if tail else None, len(vals), k)
+            torch.from_numpy(vals).to(cuda) if tail else None, len(vals), k,
+            heads=torch.from_numpy(rank[vals]).to(cuda) if tail else None,
+            hist=hist if tail else None, plan=plan)
         assert (got.cpu().numpy() == ref).all()
         assert (sfx.cpu().numpy() == vals).all()
+        if tail:
+            assert (hist.cpu().numpy() == np.bincount(
+                vals >> plan[0], minlength=plan[1])).all()
+
+
+def test_sa_keys_full_kernel_unaligned_rank(cuda):
+    """The full key kernel over a rank that starts off the 16-byte grid
+    (its scalar path) == over an aligned copy."""
+    n = (1 << 16) + 5
+    rng = np.random.default_rng(1)
+    base = torch.from_numpy(rng.integers(0, n, n + 1).astype(np.int32))
+    rank = base.to(cuda)[1:]
+    assert rank.data_ptr() % 16
+    for k in (1, 4, 7, 2049):
+        got = doubling.Kernels().keys(doubling._KEY_FULL, rank, None, n, k)
+        ref = doubling.Kernels().keys(doubling._KEY_FULL, rank.clone(), None,
+                                      n, k)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 def _round_equal(got, ref):
@@ -842,13 +865,16 @@ def test_sa_rerank_kernel_equals_plain(cuda, kind, n):
     k *= 2
     assert tied > 0
     r_c, s_c = rank.to(cuda), sa.to(cuda)
-    slots, sa_vals = doubling._extract_tied(r_c, s_c, tied)
+    kern = doubling.Kernels()
+    slots, sa_vals = doubling._extract_tied(
+        r_c, s_c, tied, kern, doubling.changed_bits_plain(r_c, s_c))
     p_slots, p_vals = doubling._extract_tied(rank, sa, tied)
     assert torch.equal(slots.cpu().long(), p_slots)
     assert torch.equal(sa_vals.cpu(), p_vals)
+    assert torch.equal(kern.heads.cpu(), rank[p_vals.long()])
     for _ in range(2):
         t_c, slots, sa_vals = doubling._bucketed_round(r_c, s_c, slots,
-                                                       sa_vals, k)
+                                                       sa_vals, k, kern)
         t_p, p_slots, p_vals = doubling._bucketed_round(rank, sa, p_slots,
                                                         p_vals, k)
         assert t_c == t_p
@@ -880,6 +906,81 @@ def test_sa_loop_card_equals_plain(cuda, kind, n):
             for a, b in zip(got[1], ref[1]):
                 assert torch.equal(a.cpu(), b.cpu())
         assert launched["sa_keys"] > 0 and launched["sa_rerank"] > 0
+
+
+@pytest.mark.parametrize("kind,n", [("dna", 70_001), ("wide9", 100_003),
+                                    ("family", 20_000), ("clonal", 20_000),
+                                    ("dna", (1 << 22) + 1)])
+@pytest.mark.parametrize("parts", [0, 1, 7, 300])
+def test_sa_loop_partitioned_card_equals_plain(cuda, kind, n, parts):
+    """The loop on the card with the rank scatter forced into at most
+    ``parts`` parts in every round, full and tail (0: the direct scatter
+    throughout): SA, the level rows, the count, the flag and each round's
+    tied count == the plain version's on the CPU; the pair scatter
+    launches in every partitioned round."""
+    sym, packed, base = _sa_text(kind, n)
+    L = doubling.levels_needed(sym.shape[0], packed, base)
+    kernels.reset_launches()
+    trace = []
+    got = doubling.sa_loop(sym.to(cuda), packed, L, base,
+                           doubling.Kernels(parts=parts, trace=trace))
+    ref_trace = []
+    ref = doubling.sa_loop(sym, packed, L, base,
+                           doubling.Kernels(twin=True, trace=ref_trace))
+    plain = doubling.sa_loop(sym, packed, L, base)
+    for r in (ref, plain):
+        assert got[2:] == r[2:] and len(got[1]) == len(r[1])
+        assert torch.equal(got[0].cpu(), r[0])
+        for a, b in zip(got[1], r[1]):
+            assert torch.equal(a.cpu(), b)
+    assert [(r["kind"], r["entries"], r["tied"]) for r in trace] == \
+        [(r["kind"], r["entries"], r["tied"]) for r in ref_trace]
+    rounds = sum(r["kind"] != "extract" for r in trace)
+    assert kernels.launches["sa_pair_scatter"] == (rounds if parts else 0)
+
+
+@pytest.mark.parametrize("kind,n,rounds", [("dna", (1 << 20) + 3, 0),
+                                           ("clonal", 30_000, 2)])
+def test_sa_rerank_bits_and_extract_card(cuda, kind, n, rounds):
+    """A full rerank on the card leaves the changed bits of its ranks and
+    SA (``changed_bits_plain``), and the extract from them == the plain
+    extract, with heads == rank[suffix]."""
+    sym, packed, base = _sa_text(kind, n)
+    rank, tied, sa = doubling._initial_ranks(sym, packed, base)
+    k = base
+    for _ in range(rounds):
+        rank, tied, sa = doubling._doubling_round(rank, sa, k)
+        k *= 2
+    kern = doubling.Kernels()
+    r, tied, s = doubling._doubling_round(rank.to(cuda), sa.to(cuda), k,
+                                          kern)
+    assert torch.equal(kern.bits, doubling.changed_bits_plain(r, s))
+    slots, sa_vals = doubling._extract_tied(r, s, tied, kern)
+    p_slots, p_vals = doubling._extract_tied_plain(r, s)
+    assert torch.equal(slots.long(), p_slots)
+    assert torch.equal(sa_vals, p_vals)
+    assert torch.equal(kern.heads, r[sa_vals.long()])
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 2048, 4097, (1 << 21) + 1])
+def test_sa_pair_scatter_kernel_equals_index_put(cuda, m):
+    """sa_pair_scatter == ``index_put_`` of the same (suffix, head) pairs,
+    in any order, an odd count too."""
+    rng = np.random.default_rng(m)
+    n = 2 * m + 5
+    dest = rng.permutation(n)[:m].astype(np.int32)
+    head = rng.integers(0, n, m).astype(np.int32)
+    pairs = torch.from_numpy(np.stack([dest, head], 1).reshape(-1).copy())
+    buf = torch.empty(m, dtype=torch.int64, device=cuda)
+    buf.view(torch.int32).copy_(pairs.to(cuda))
+    rank = torch.from_numpy(rng.integers(0, n, n).astype(np.int32)).to(cuda)
+    ref = rank.clone()
+    ref[torch.from_numpy(dest).long().to(cuda)] = torch.from_numpy(head).to(
+        cuda)
+    before = kernels.launches["sa_pair_scatter"]
+    doubling.Kernels().scatter(buf, m, rank)
+    assert kernels.launches["sa_pair_scatter"] == before + 1
+    assert torch.equal(rank, ref)
 
 
 @pytest.mark.parametrize("n", [1024, 70_000, 1 << 20])

@@ -13,8 +13,8 @@ the count, the count and the overflow flag, with the budget cut below
 the need too) and ``sa_lcp_device``.  Texts: random DNA, mutated joint
 families with separators, padded to the block bucket, a duplicated
 genome and a clonal pair (many levels); n = 1, 2, 3, 17 and the twin's
-tiles (64 tiny, 2048 the kernel's) +- 1, so the look-back folds across
-tiles and the tail compaction crosses them.  Run alone:
+tiles (64 tiny, 4096 the kernel's, and 2048) +- 1, so the look-back
+folds across tiles and the tail compaction crosses them.  Run alone:
 
     python -m pytest tests/test_torch_doubling.py -q
 """
@@ -33,12 +33,19 @@ from andix_torch.sequence import catcomp
 torch.set_num_threads(2)
 
 NUCL = np.frombuffer(b"ACGT", dtype=np.uint8)
-TILES = (63, 64, 65, 2047, 2048, 2049)  # the twin's tiles (tiny, kernel)
-ROUTES = ("twin", "twin_tiny")
+# the twin's tiles (tiny), 2048 (the kernel's before tiles of 4096) and
+# the kernel's
+TILES = (63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097)
+# the twin at the kernel's tiles, at tiny ones, and at tiny ones with the
+# rank scatter partitioned into (at most) 5 parts in every round
+ROUTES = ("twin", "twin_tiny", "twin_parts")
 
 
-def _route(name):
-    return doubling.Kernels(twin=True, tiny=name == "twin_tiny")
+def _route(name, parts=None, bin_order=0):
+    if name == "twin_parts" and parts is None:
+        parts = 5
+    return doubling.Kernels(twin=True, tiny=name != "twin", parts=parts,
+                            bin_order=bin_order)
 
 
 def _dna(rng, n):
@@ -105,12 +112,13 @@ def _assert_loop_equal(got, ref, L):
 
 
 def _loop_routes(sym, packed, L, base):
-    """sa_loop through the plain version and both twins."""
+    """sa_loop through the plain version and every twin route."""
     t = torch.from_numpy(sym)
     out = {"plain": doubling.sa_loop(t, packed, L, base)}
     for name in ROUTES:
-        out[name] = doubling.sa_loop_cpu_twin(t, packed, L, base,
-                                              tiny=name == "twin_tiny")
+        out[name] = doubling.sa_loop_cpu_twin(
+            t, packed, L, base, tiny=name != "twin",
+            parts=5 if name == "twin_parts" else None)
     return out
 
 
@@ -226,7 +234,9 @@ def test_extract_and_bucketed_round_equal_andix(kind, n, rounds):
     jr = np.asarray(jr)
     for route in (None, *map(_route, ROUTES)):
         r, s = rank.clone(), sa.clone()
-        slots, sa_vals = doubling._extract_tied(r, s, tied, route)
+        bits = (None if route is None
+                else doubling.changed_bits_plain(rank, sa))
+        slots, sa_vals = doubling._extract_tied(r, s, tied, route, bits)
         assert (slots.numpy() == j_slots).all()
         assert (sa_vals.numpy() == sa.numpy()[j_slots]).all()
         t2, slots2, sa_vals2 = doubling._bucketed_round(r, s, slots, sa_vals,
@@ -309,3 +319,206 @@ def test_kernels_refuse_bad_inputs():
     with pytest.raises(ValueError):
         doubling.Kernels().rerank(doubling._RR_FULL, 8, keys, vals,
                                   rank=rank, sa=rank.clone())
+
+
+# The partitioned rank scatter, the extract from the changed bits and the
+# heads carried beside the tied suffixes (csrc/doubling.cu's redesign).
+
+
+def _plain_rounds(sym, packed, base):
+    """(kind, entries, tied after) of each round of ``sa_loop``'s control
+    flow, run through the plain steps."""
+    t = torch.from_numpy(sym)
+    n = len(sym)
+    thr0 = int(n * doubling._BUCKET_FRAC)
+    rank, tied, sa = doubling._initial_ranks(
+        t, packed, base if packed else doubling.BASE_WIDTH)
+    out = [("initial", n, tied)]
+    k = base
+    while tied > thr0 and k < n:
+        rank, tied, sa = doubling._doubling_round(rank, sa, min(k, n))
+        out.append(("full", n, tied))
+        k = min(k * 2, 1 << 30)
+    if tied > 0 and k < n:
+        slots, sa_vals = doubling._extract_tied(rank, sa, tied)
+        out.append(("extract", n, tied))
+        while tied > 0 and k < n:
+            m = slots.shape[0]
+            tied, slots, sa_vals = doubling._bucketed_round(
+                rank, sa, slots, sa_vals, min(k, n))
+            out.append(("tail", m, tied))
+            k = min(k * 2, 1 << 30)
+    return out
+
+
+def _rounds(trace):
+    return [(r["kind"], r["entries"], r["tied"]) for r in trace]
+
+
+@pytest.mark.parametrize("kind,n,L", [
+    ("dna", 2049, None), ("dna", 4097, None), ("dna_clamped", 2048, None),
+    ("dna_wide12", 2049, None), ("family", 700, None),
+    ("clonal", 600, None), ("duplicated", 500, None),
+    ("clonal", 600, 3), ("dna", 2049, 2),
+])
+@pytest.mark.parametrize("parts", [1, 3, 64])
+@pytest.mark.parametrize("tiny", [False, True])
+def test_partitioned_loop_equals_plain_and_andix(kind, n, L, parts, tiny):
+    """The rank scatter partitioned into at most ``parts`` parts in every
+    round, full and tail, at the kernel's tiles and at tiny ones (so
+    several parts and several tiles meet): the twin's loop == andix's
+    (SA, every level row, count, overflow flag, with the budget cut
+    below the need too) and its rounds' tied counts == the plain
+    steps'."""
+    sym, packed, base = _text(kind, n, 11 * n + parts)
+    need = doubling.levels_needed(len(sym), packed, base)
+    L = need if L is None else L
+    ref = _andix_loop(sym, packed, L, base)
+    trace = []
+    route = doubling.Kernels(twin=True, tiny=tiny, parts=parts, trace=trace)
+    got = doubling.sa_loop(torch.from_numpy(sym), packed, L, base, route)
+    _assert_loop_equal(got, ref, L)
+    assert _rounds(trace) == _plain_rounds(sym, packed, base)
+    _assert_loop_equal(doubling.sa_loop_cpu_twin(
+        torch.from_numpy(sym), packed, L, base, tiny, parts), ref, L)
+
+
+@pytest.mark.parametrize("kind,n", [("dna", 4097), ("clonal", 600),
+                                    ("duplicated", 500), ("family", 700)])
+@pytest.mark.parametrize("bin_order", [1, 2])
+def test_pair_order_changes_no_rank(kind, n, bin_order):
+    """The pairs binned and written reversed (1) or shuffled (2), as the
+    card's atomics may order them: every round's tied count, the SA and
+    every level row equal those of the order they come in."""
+    sym, packed, base = _text(kind, n, 5 * n + bin_order)
+    L = doubling.levels_needed(len(sym), packed, base)
+    runs = []
+    for order in (0, bin_order):
+        trace = []
+        route = doubling.Kernels(twin=True, tiny=True, parts=7,
+                                 bin_order=order, trace=trace)
+        runs.append((doubling.sa_loop(torch.from_numpy(sym), packed, L,
+                                      base, route), _rounds(trace)))
+    (a, ra), (b, rb) = runs
+    assert ra == rb and a[2:] == b[2:]
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+@pytest.mark.parametrize("route_name", ROUTES)
+@pytest.mark.parametrize("kind,n,rounds", [
+    ("dna", 2049, 0), ("dna", 17, 0), ("dna", 2049, -1),
+    ("dna_wide6", 2049, 0), ("clonal", 600, 2), ("duplicated", 500, 1),
+    ("family", 700, 1),
+])
+def test_extract_from_bits_equals_plain(route_name, kind, n, rounds):
+    """A full rerank through the twin (the initial one at ``rounds`` -1)
+    leaves changed bits == ``changed_bits_plain`` of the ranks and SA it
+    wrote; the extract from them and SA alone == ``_extract_tied_plain``
+    (the slots ascending, their suffixes), and the heads it carries ==
+    rank[suffix]."""
+    sym, packed, base = _text(kind, n, 3 * n + rounds)
+    route = _route(route_name)
+    if rounds < 0:
+        r, tied, s = doubling._initial_ranks(torch.from_numpy(sym), packed,
+                                             base, route)
+    else:
+        rank, sa, _, k = _after_rounds(sym, packed, base, rounds)
+        r, tied, s = doubling._doubling_round(rank.clone(), sa.clone(), k,
+                                              route)
+    assert torch.equal(route.bits, doubling.changed_bits_plain(r, s))
+    slots, sa_vals = doubling._extract_tied(r, s, tied, route)
+    p_slots, p_vals = doubling._extract_tied_plain(r, s)
+    assert slots.dtype == torch.int32 and slots.shape[0] == tied
+    assert torch.equal(slots.long(), p_slots)
+    assert torch.equal(sa_vals, p_vals)
+    assert torch.equal(route.heads, r[sa_vals.long()])
+
+
+@pytest.mark.parametrize("route_name", ROUTES)
+@pytest.mark.parametrize("kind,n", [("clonal", 600), ("duplicated", 500),
+                                    ("family", 700), ("dna", 4097)])
+def test_carried_heads_equal_rank(route_name, kind, n):
+    """Through a loop's tail on the twin: after the extract and after each
+    tail round the heads the route carries are rank[suffix] of the still-
+    tied suffixes, and the round gives the plain round's ranks and tied
+    slots."""
+    sym, packed, base = _text(kind, n, 13 * n)
+    nn = len(sym)
+    thr0 = int(nn * doubling._BUCKET_FRAC)
+    route = _route(route_name)
+    rank, tied, sa = doubling._initial_ranks(torch.from_numpy(sym), packed,
+                                             base, route)
+    k = base
+    while tied > thr0 and k < nn:
+        rank, tied, sa = doubling._doubling_round(rank, sa, k, route)
+        k *= 2
+    assert tied > 0 and k < nn
+    slots, sa_vals = doubling._extract_tied(rank, sa, tied, route)
+    tails = 0
+    while tied > 0 and k < nn:
+        assert torch.equal(route.heads, rank[sa_vals.long()])
+        p_rank, p_sa = rank.clone(), sa.clone()
+        p_tied, p_slots, _ = doubling._bucketed_round(
+            p_rank, p_sa, slots.long(), sa_vals.clone(), k)
+        tied, slots, sa_vals = doubling._bucketed_round(rank, sa, slots,
+                                                        sa_vals, k, route)
+        assert tied == p_tied and torch.equal(rank, p_rank)
+        assert torch.equal(slots.long(), p_slots)
+        k *= 2
+        tails += 1
+    assert torch.equal(route.heads, rank[sa_vals.long()])
+    assert tails > 0
+
+
+def test_scatter_plan_rule():
+    """The partition rule: windows of 2^21 suffixes once rank holds more
+    than one (8 parts at 2^24, 48 at the 8 x 5 Mbp block, 1024 at the
+    largest int32 text), the direct scatter for a tail over 2^24 or fewer
+    suffixes or of fewer than one tied suffix in 16; a forced count gives
+    at most that many parts."""
+    plan = doubling._scatter_plan
+    assert plan(1 << 21, 1 << 21, False) == (0, 0)
+    assert plan((1 << 21) + 1, (1 << 21) + 1, False) == (21, 2)
+    assert plan(1 << 24, 1 << 24, False) == (21, 8)
+    assert plan(100_663_296, 100_663_296, False) == (21, 48)
+    assert plan((1 << 31) - 1, (1 << 31) - 1, False) == (21, 1024)
+    assert plan(1 << 24, 1 << 22, True) == (0, 0)
+    assert plan(100_663_296, 6_291_455, True) == (0, 0)
+    assert plan(100_663_296, 6_291_456, True) == (21, 48)
+    assert plan((1 << 24) + 1, (1 << 24) + 1, True) == (21, 9)
+    assert plan(2049, 2049, False, 5) == (9, 5)
+    assert plan(2049, 10, True, 3) == (10, 3)
+    assert plan(3, 3, False, 64) == (0, 3)
+    assert plan(1 << 24, 1 << 24, False, 0) == (0, 0)
+    with pytest.raises(ValueError):
+        plan(1 << 24, 1 << 24, False, 1025)
+
+
+def test_kernels_refuse_missing_carry():
+    """The extract without a full round's bits over its entries, and a
+    tail round without heads carried beside its suffixes, raise."""
+    sym, packed, base = _text("clonal", 600, 1)
+    rank, sa, tied, k = _after_rounds(sym, packed, base, 1)
+    twin = _route("twin")
+    with pytest.raises(ValueError):
+        doubling._extract_tied(rank, sa, tied, twin)
+    slots, sa_vals = doubling._extract_tied(
+        rank, sa, tied, twin, doubling.changed_bits_plain(rank, sa))
+    fresh = _route("twin")
+    with pytest.raises(ValueError):
+        doubling._bucketed_round(rank, sa, slots, sa_vals, k, fresh)
+    twin.heads = twin.heads[1:]
+    with pytest.raises(ValueError):
+        doubling._bucketed_round(rank, sa, slots, sa_vals, k, twin)
+    n, m = rank.shape[0], slots.shape[0]
+    plan = doubling._scatter_plan(n, m, True, 4)
+    keys = torch.zeros(m, dtype=torch.int64)
+    with pytest.raises(ValueError):  # part counts one short
+        twin.keys(doubling._KEY_TAIL, rank, sa_vals, m, k, heads=sa_vals,
+                  hist=torch.zeros(plan[1] - 1, dtype=torch.int32),
+                  plan=plan)
+    with pytest.raises(ValueError):  # a partitioned tail without counts
+        twin.rerank(doubling._RR_TAIL, m, keys, sa_vals, slots, rank, sa,
+                    (slots.clone(), sa_vals.clone(), sa_vals.clone()),
+                    pairs=keys.clone(), plan=plan)

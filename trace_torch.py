@@ -7,6 +7,8 @@ Run from the repository root, on a machine with a card:
                            [--replay events|loop] [--tree DIR]
 
 ``--replay loop`` traces the count-in-loop path (``ANDIX_REPLAY=loop``);
+``--sa-cold`` runs no CLI and asks why a cold doubling loop is slower
+than a warm one (``_sa_cold``);
 ``--tree DIR`` imports ``andix_torch`` from DIR, a checkout of another
 commit (for example one unpacked with ``git archive``), so two commits
 can be traced in one call on one card.
@@ -47,7 +49,8 @@ OURS = ("chain_walk_flat_kernel", "walk_sx", "flag_scan", "finals_kernel",
         "settle_kernel", "fill_kernel", "fine_kernel", "t8_kernel",
         "tg_kernel", "replay_rows_kernel", "replay_cold_kernel",
         "replay_splice_kernel", "initial_key_kernel", "round_key_kernel",
-        "rerank_kernel")
+        "full_key_kernel", "tail_key_kernel", "rerank_kernel",
+        "pair_scatter_kernel")
 
 
 def _device_items(prof):
@@ -76,6 +79,8 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--replay", default="events", choices=("events", "loop"))
     ap.add_argument("--tree", default=None)
+    ap.add_argument("--sa-cold", action="store_true",
+                    help="only time and trace cold and warm doubling loops")
     args = ap.parse_args(argv)
     if args.tree:
         tree = os.path.abspath(args.tree)
@@ -98,6 +103,10 @@ def main(argv=None) -> int:
     label = (f"{args.genomes}x{args.length} ANDIX_INDEX={args.index} "
              f"ANDIX_REPLAY={args.replay}"
              + (f" tree {args.tree}" if args.tree else ""))
+    if args.sa_cold:
+        _sa_cold(label, chip_smoke.make_family(args.genomes, args.length),
+                 args.runs)
+        return 0
     os.environ["ANDIX_INDEX"] = args.index
     os.environ["ANDIX_REPLAY"] = args.replay
     with tempfile.TemporaryDirectory() as tmp:
@@ -160,6 +169,78 @@ def _trace_sa(label, fam):
           f"device busy {busy:.6f} s ({100 * busy / wall:.2f}%)", flush=True)
     for k, (us, c) in sorted(items.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  top {k[:60]}: {us / 1e3:.4f} ms, {c} calls", flush=True)
+
+
+def _sa_cold(label, fam, runs):
+    """Why a cold doubling loop is slower than a warm one.  The loop over
+    the family's padded joint text, on the host clock to a synchronize,
+    after each of four preludes in turns (each after a warm call): none
+    (warm), 2 s of sleep with the allocator's cache kept (idle),
+    ``torch.cuda.empty_cache()`` (emptied, as ``bench_kernels.py``'s cold
+    call and the CLI's first block meet it) and both; ``runs`` rounds.
+    Then each prelude once more under torch.profiler: the wall, the
+    device busy time, the hand kernels' device ms, and the host's CUDA
+    runtime calls (cudaMalloc, cudaFree, module loads, ...) by total
+    ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from andix_torch.esa import doubling
+
+    dev = torch.device("cuda", 0)
+    sym, _, _, cnt, _, base, _ = chip_smoke._joint_text(dev, fam)
+    n = sym.shape[0]
+    L = doubling.plan_levels(n, True, base, None, True, "hybrid")[0]
+
+    def call():
+        doubling.sa_loop(sym, True, L, base)
+
+    def idle():
+        time.sleep(2)
+
+    def both():
+        torch.cuda.empty_cache()
+        idle()
+
+    preludes = {"warm": lambda: None, "idle": idle,
+                "emptied": torch.cuda.empty_cache, "emptied+idle": both}
+    times = {k: [] for k in preludes}
+    for _ in range(runs):
+        for name, prelude in preludes.items():
+            call()
+            torch.cuda.synchronize()
+            prelude()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    for name, ms in times.items():
+        print(f"sa_cold {label} (n={n}, {cnt} levels) {name}: "
+              + ", ".join(f"{t:.4f}" for t in ms) + " ms", flush=True)
+    for name, prelude in preludes.items():
+        call()
+        torch.cuda.synchronize()
+        prelude()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        items = _device_items(prof)
+        busy = sum(t for t, _ in items.values()) / 1e3
+        host = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CPU and \
+                    e.key.startswith("cu"):
+                us, c = host.get(e.key, (0, 0))
+                host[e.key] = (us + e.self_cpu_time_total, c + e.count)
+        print(f"sa_cold {label} traced {name}: wall {1e3 * wall:.4f} ms, "
+              f"device busy {busy:.4f} ms", flush=True)
+        for k, (us, c) in sorted(items.items(), key=lambda kv: -kv[1][0]):
+            if any(o in k for o in OURS) or us > 1000:
+                print(f"  device {k[:60]}: {us / 1e3:.4f} ms, {c} calls")
+        for k, (us, c) in sorted(host.items(), key=lambda kv: -kv[1][0])[:8]:
+            print(f"  host {k[:60]}: {us / 1e3:.4f} ms, {c} calls")
 
 
 if __name__ == "__main__":
