@@ -3,10 +3,10 @@
 
 ``device_bootstrap_rounds`` draws [rounds, pairs, 16] multinomial
 resamples of the averaged count matrices, each pair's total kept, in one
-launch of a hand-written kernel (``csrc/bootstrap.cu``): a thread a
-(round, pair), the 16 cells as conditional binomials over Philox4x32-10
-words keyed by the seed (``csrc/bootstrap_lane.cuh`` sets out the
-sampler).  ``andix`` draws with ``jax.random.multinomial``, whose
+launch of a hand-written kernel (``csrc/bootstrap.cu``): a warp a pair,
+its lanes 32 of the pair's rounds, the 16 cells as conditional binomials
+over Philox4x32-10 words keyed by the seed (``csrc/bootstrap_lane.cuh``
+sets out the sampler).  ``andix`` draws with ``jax.random.multinomial``, whose
 threefry stream torch cannot reproduce, so the two agree in their
 properties and their distribution, not in their draws.  Counts are
 carried as int64 (``andix`` carries float64, exact below 2^53).
@@ -76,9 +76,10 @@ def resample(counts, rounds: int, seed: int):
 
 
 def resample_cpu_twin(counts, rounds: int, seed: int, tally=None):
-    """The kernel's (round, pair) body (``bootstrap_lane.cuh``) built for
-    the host with g++, over every (round, pair) in order.  ``tally``, when
-    a dict, receives the sampler's work, as ``resample_plain``'s."""
+    """The kernel's body (``bootstrap_lane.cuh``) built for the host with
+    g++, at the kernel's mapping: each pair's constants once a chunk of
+    32 rounds, then the chunk's rounds.  ``tally``, when a dict, receives
+    the sampler's work, as ``resample_plain``'s."""
     out = _out(counts, rounds, torch.device("cpu"))
     t = torch.zeros(3, dtype=torch.int64)
     kernels.cpu_twin().andix_bootstrap_resample_cpu(

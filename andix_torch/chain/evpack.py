@@ -3,7 +3,7 @@
 The subject-index schedule's walk leaves its events in four int32
 buffers (lane, q, s, len), 16 B an event.  ``encode_events`` packs the
 first ``k`` slots on the device at about 6 B an event: a stable sort by
-lane (``torch.sort``, as ``andix`` sorts with ``jnp.sort``), then
+lane (as ``andix`` sorts with ``jnp.sort``), then
 
 * ``counts``  int32[n_lanes] events per lane (replaces the lane array),
 * ``packed``  int32[3, ceil(k / 2)]: (dq, ddiag, len) 16-bit fields, two
@@ -19,10 +19,13 @@ lane (``torch.sort``, as ``andix`` sorts with ``jnp.sort``), then
 chain order on the host, exactly (``andix``'s decode, copied).
 
 Three routes, like every kernel of the port: on a CUDA tensor the
-hand-written kernel (``csrc/evpack.cu``, after the sort); its g++ twin
-(``encode_events_cpu_twin``, the same event bodies, ``evpack_lane.cuh``);
-and ``encode_events_plain``, ``andix``'s ``_encode_fn`` in torch ops, which
-a CPU tensor takes.
+hand-written kernels (``csrc/evpack.cu``: a key pass, CUB's radix sort of
+the lane bits, one encode pass with a decoupled look-back for the escape
+slots); their g++ twin (``encode_events_cpu_twin``, the same bodies,
+``evpack_lane.cuh``, tiles in a shuffled order); and
+``encode_events_plain``, ``andix``'s ``_encode_fn`` in torch ops, which a
+CPU tensor takes.  Live lanes must lie in [0, n_lanes), as the walk
+writes them.
 
 Deliberate differences from ``andix``: an odd ``k`` (an odd
 ``ANDIX_EVENT_CAP``) pads the pairing by one slot, where ``andix``'s
@@ -87,10 +90,8 @@ def encode_events_flat(ev_lane, ev_q, ev_s, ev_len, ev_cnt, k: int,
 
 
 def _args(ev_lane, ev_q, ev_s, ev_len, ev_cnt, k, n_lanes, device):
-    """Checked arguments shared by the kernel and its host twin, the
-    output buffer, and the sort they read: the first k slots' lanes
-    (dead slots keyed ``n_lanes``) in stable sorted order and each sorted
-    position's slot (int64)."""
+    """Checked arguments shared by the kernels and their host twin, and
+    the output buffer."""
     cnt = int(ev_cnt)
     if not 0 <= cnt <= k or k < 1:
         raise ValueError(f"encode_events: cnt {cnt} outside [0, k = {k}]")
@@ -102,30 +103,23 @@ def _args(ev_lane, ev_q, ev_s, ev_len, ev_cnt, k, n_lanes, device):
                              f"1-D int32 tensor of at least {k} slots on "
                              f"{device}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    key = ev_lane[:k].clone()
-    key[cnt:] = n_lanes
-    lane_s, order = torch.sort(key, stable=True)
     out = torch.empty(encoded_size(k, n_lanes), dtype=torch.int32,
                       device=device)
-    args = [lane_s.data_ptr(), order.data_ptr(), ev_q.data_ptr(),
-            ev_s.data_ptr(), ev_len.data_ptr(), ctypes.c_int64(cnt),
-            ctypes.c_int64(k), n_lanes, esc_capacity(n_lanes),
-            out.data_ptr()]
-    return args, out, (lane_s, order)
+    args = [ev_lane.data_ptr(), ev_q.data_ptr(), ev_s.data_ptr(),
+            ev_len.data_ptr(), ctypes.c_int64(cnt), ctypes.c_int64(k),
+            n_lanes, esc_capacity(n_lanes), out.data_ptr()]
+    return args, out
 
 
 def _encode_cuda(ev_lane, ev_q, ev_s, ev_len, ev_cnt, k, n_lanes):
     device = ev_lane.device
-    args, out, _sort = _args(ev_lane, ev_q, ev_s, ev_len, ev_cnt, k,
-                             n_lanes, device)
+    args, out = _args(ev_lane, ev_q, ev_s, ev_len, ev_cnt, k, n_lanes,
+                      device)
     lib = kernels.cuda_lib()
-    kh = (k + 1) // 2
-    nb = -(-kh // lib.andix_evpack_pairs())
-    block = torch.empty(2 * nb, dtype=torch.int32, device=device)
-    bits = torch.empty(kh, dtype=torch.uint8, device=device)
+    nbytes = lib.andix_evpack_scratch_bytes(k, n_lanes)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
     with kernels.launch_on(device) as stream:
-        err = lib.andix_evpack_encode(*args, block.data_ptr(),
-                                      block[nb:].data_ptr(), bits.data_ptr(),
+        err = lib.andix_evpack_encode(*args, scratch.data_ptr(), nbytes,
                                       stream)
     kernels.check(err, "evpack_encode")
     kernels.count_launch("evpack_encode", device)
@@ -133,13 +127,18 @@ def _encode_cuda(ev_lane, ev_q, ev_s, ev_len, ev_cnt, k, n_lanes):
 
 
 def encode_events_cpu_twin(ev_lane, ev_q, ev_s, ev_len, ev_cnt, k: int,
-                           n_lanes: int, tiny: bool = False):
-    """The kernels' event bodies (``evpack_lane.cuh``) built for the host
-    with g++, block after block — for testing the kernels' logic without
-    a card.  ``tiny`` takes blocks of 4 pairs instead of the kernel's."""
-    args, out, _ = _args(ev_lane, ev_q, ev_s, ev_len, ev_cnt, k, n_lanes,
-                         torch.device("cpu"))
-    kernels.cpu_twin().andix_evpack_encode_cpu(*args, int(tiny))
+                           n_lanes: int, tiny: bool = False, seed: int = 0):
+    """The kernels' passes (``evpack_lane.cuh``) built for the host with
+    g++: the key pass, a stable sort, and the encode pass with its tiles
+    in an order shuffled by ``seed`` against the look-back — for testing
+    the kernels' logic without a card.  ``tiny`` takes tiles of 4 pairs
+    instead of the kernel's."""
+    args, out = _args(ev_lane, ev_q, ev_s, ev_len, ev_cnt, k, n_lanes,
+                      torch.device("cpu"))
+    err = kernels.cpu_twin().andix_evpack_encode_cpu(*args, int(tiny), seed)
+    if err:
+        raise RuntimeError("evpack twin: a look-back met a tile that had "
+                           "not published")
     return out
 
 

@@ -11,12 +11,19 @@
 // (round, pair)), 15.5 us of writes at 3.35 TB/s; the sampler's float64
 // work (15 conditional binomials a (round, pair), each some Philox words
 // and, by BTRS, a few logs an attempt) is of the same order at the card's
-// float64 rate.  So the design is the plain one: a thread a (round, pair),
-// its pair's 16 counts read through the cache (every round reads them),
-// its 16 int64 cells written as eight 16-byte stores; consecutive threads
-// take consecutive pairs of one round, so the stores of a warp are
-// contiguous.  Built with -fmad=false: its float64 operations must round
-// as the host twin's and the plain version's do.
+// float64 rate, and a warp runs one sampler branch at a time.  So a warp
+// takes one pair and 32 of its rounds (bootstrap_lane.cuh's mapping):
+// lanes 0-15 load the pair's counts once, sum the cells' masses
+// by shuffles and divide out each cell's p, into shared memory; every
+// lane then starts each cell from the same constants, at cell 0 with the
+// same n, so the lanes part only where their draws differ (a later cell's
+// n, the number of rejection attempts).  A lane keeps its running n and
+// the current draw in registers and writes each cell into a staging row
+// in shared memory; the warp then stores its 32 rounds' rows as 16-byte
+// words on consecutive addresses, eight a round's 128 B.  Consecutive
+// warps take consecutive pairs of the same rounds.  Built with
+// -fmad=false: its float64 operations must round as the host twin's and
+// the plain version's do.
 
 #include <cuda_runtime.h>
 
@@ -24,22 +31,56 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * BOOT_WARP;
+constexpr int kRow = BOOT_CELLS + 1;  // a staging row, padded off the banks
+constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kThreads)
     resample_kernel(const long long* __restrict__ counts, int pairs,
-                    long long total, unsigned key,
+                    int rounds, long long warps, unsigned key,
                     long long* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const unsigned round = (unsigned)(t / pairs), pair = (unsigned)(t % pairs);
-  long long c[BOOT_CELLS], x[BOOT_CELLS];
-  for (int i = 0; i < BOOT_CELLS; ++i)
-    c[i] = counts[(long long)pair * BOOT_CELLS + i];
-  boot_resample(c, x, key, round, pair, nullptr);
-  longlong2* dst = reinterpret_cast<longlong2*>(out + t * BOOT_CELLS);
-  for (int i = 0; i < BOOT_CELLS / 2; ++i)
-    dst[i] = make_longlong2(x[2 * i], x[2 * i + 1]);
+  __shared__ long long s_cc[kWarps][BOOT_CELLS];
+  __shared__ long long s_mass[kWarps][BOOT_CELLS];
+  __shared__ double s_p[kWarps][BOOT_CELLS];
+  __shared__ long long s_row[kWarps][BOOT_WARP * kRow];
+  const int warp = threadIdx.x / BOOT_WARP, lane = threadIdx.x % BOOT_WARP;
+  const long long w = (long long)blockIdx.x * kWarps + warp;
+  if (w >= warps) return;  // the whole warp
+  const int pair = (int)(w % pairs);
+  const long long chunk = w / pairs;
+
+  const long long cc =
+      lane < BOOT_CELLS ? __ldg(counts + (long long)pair * BOOT_CELLS + lane)
+                        : 0;
+  long long mass = cc;  // lanes 0-15: the suffix sums, cell c's mass
+#pragma unroll
+  for (int d = 1; d < BOOT_CELLS; d *= 2) {
+    const long long t = __shfl_down_sync(kFull, mass, d);
+    if (lane + d < BOOT_CELLS) mass += t;
+  }
+  if (lane < BOOT_CELLS) {
+    s_cc[warp][lane] = cc;
+    s_mass[warp][lane] = mass;
+    s_p[warp][lane] = boot_cell_p(cc, mass);
+  }
+  __syncwarp();
+
+  long long* row = s_row[warp];
+  const unsigned round = boot_round(chunk, lane);
+  if (round < (unsigned)rounds)
+    boot_draw_round(s_cc[warp], s_mass[warp], s_p[warp], key, round,
+                    (unsigned)pair, row + lane * kRow, nullptr);
+  __syncwarp();
+
+  const long long r0 = boot_round(chunk, 0);
+  const int live = rounds - r0 < BOOT_WARP ? (int)(rounds - r0) : BOOT_WARP;
+  for (int x = lane; x < live * (BOOT_CELLS / 2); x += BOOT_WARP) {
+    const int r = x / (BOOT_CELLS / 2), c = 2 * (x % (BOOT_CELLS / 2));
+    longlong2* dst = reinterpret_cast<longlong2*>(
+        out + ((r0 + r) * pairs + pair) * BOOT_CELLS + c);
+    *dst = make_longlong2(row[r * kRow + c], row[r * kRow + c + 1]);
+  }
 }
 
 }  // namespace
@@ -48,10 +89,11 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int andix_bootstrap_resample(const long long* counts, int pairs,
                                         int rounds, unsigned key,
                                         long long* out, void* stream) {
-  const long long total = (long long)pairs * rounds;
-  if (total <= 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (pairs <= 0 || rounds <= 0) return 0;
+  const long long warps =
+      (long long)pairs * ((rounds + BOOT_WARP - 1) / BOOT_WARP);
+  const long long blocks = (warps + kWarps - 1) / kWarps;
   resample_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      counts, pairs, total, key, out);
+      counts, pairs, rounds, warps, key, out);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // The bootstrap resampler's body, shared by the CUDA kernel (bootstrap.cu,
-// a thread a (round, pair)) and its host twin (bootstrap_cpu.cpp, built
-// with g++ for the tests, one caller over every (round, pair)).
+// a warp a pair's 32 rounds) and its host twin (bootstrap_cpu.cpp, built
+// with g++ for the tests, one caller at the same mapping).
 //
 // One (round, pair) draws its 16 cells as conditional binomials: cell c
 // takes Binomial(n, counts[c] / mass), with n the total not yet drawn and
@@ -72,13 +72,22 @@ BOOT_HD double boot_u53(unsigned hi, unsigned lo) {
   return (double)x * (1.0 / 9007199254740992.0);
 }
 
+// below 10 from the table, picked by selects (an indexed table would sit
+// in the kernel's local memory)
 BOOT_HD double boot_stirling_tail(double k) {
-  const double tail[10] = {0.0810614667953272,  0.0413406959554092,
-                           0.0276779256849983,  0.02079067210376509,
-                           0.0166446911898211,  0.0138761288230707,
-                           0.0118967099458917,  0.0104112652619720,
-                           0.00925546218271273, 0.00833056343336287};
-  if (k <= 9) return tail[(int)k];
+  if (k <= 9) {
+    const int i = (int)k;
+    return i == 0   ? 0.0810614667953272
+           : i == 1 ? 0.0413406959554092
+           : i == 2 ? 0.0276779256849983
+           : i == 3 ? 0.02079067210376509
+           : i == 4 ? 0.0166446911898211
+           : i == 5 ? 0.0138761288230707
+           : i == 6 ? 0.0118967099458917
+           : i == 7 ? 0.0104112652619720
+           : i == 8 ? 0.00925546218271273
+                    : 0.00833056343336287;
+  }
   const double kp1sq = (k + 1) * (k + 1);
   return (1.0 / 12 - (1.0 / 360 - 1.0 / 1260 / kp1sq) / kp1sq) / (k + 1);
 }
@@ -145,31 +154,48 @@ BOOT_HD long long boot_binomial_half(long long n, double p, BootStream* st,
   }
 }
 
-// one (round, pair): counts[16] -> out[16]
-BOOT_HD void boot_resample(const long long* counts, long long* out,
-                           unsigned k0, unsigned round, unsigned pair,
-                           BootTally* tally) {
-  long long n = 0;
-  for (int c = 0; c < BOOT_CELLS; ++c) n += counts[c];
-  long long mass = n;
+// The warp mapping, kernel and twin alike: a warp takes one pair's rounds
+// 32 at a time, lane r drawing round chunk * 32 + r; the tail lanes of a
+// rounds count that is not a multiple of 32 draw nothing.
+#define BOOT_WARP 32
+
+BOOT_HD unsigned boot_round(long long chunk, int lane) {
+  return (unsigned)(chunk * BOOT_WARP + lane);
+}
+
+// What every round of a pair shares, cell by cell: its count cc, its mass
+// (the counts of cells c..15, the total at cell 0) and p = cc / mass (0
+// where cc is 0).  The kernel's lanes 0-15 compute a cell each, the twin
+// one after another; the mass is an integer sum and p one division of the
+// same operands, so both give the same bits.
+BOOT_HD double boot_cell_p(long long cc, long long mass) {
+  return cc > 0 ? (double)cc / (double)mass : 0.0;
+}
+
+// One round of one pair from its cells' cc, mass and p: the 16 cells into
+// out[0..15].  The lanes of a warp start every cell with the same cc,
+// mass and p, and at cell 0 with the same n (the total), so they take the
+// same branch there; they part only where their draws differ.
+BOOT_HD void boot_draw_round(const long long* cc, const long long* mass,
+                             const double* p, unsigned k0, unsigned round,
+                             unsigned pair, long long* out,
+                             BootTally* tally) {
+  long long n = mass[0];
   BootStream st{k0, round, pair, 0, 0};
   for (int c = 0; c < BOOT_CELLS - 1; ++c) {
-    const long long cc = counts[c];
     long long x = 0;
-    if (n > 0 && cc > 0) {
-      if (cc == mass) {
+    if (n > 0 && cc[c] > 0) {
+      if (cc[c] == mass[c]) {
         x = n;
       } else {
-        const double p = (double)cc / (double)mass;
         st.cell = (unsigned)c;
         st.attempt = 0;
-        x = p > 0.5 ? n - boot_binomial_half(n, 1 - p, &st, tally)
-                    : boot_binomial_half(n, p, &st, tally);
+        x = p[c] > 0.5 ? n - boot_binomial_half(n, 1 - p[c], &st, tally)
+                       : boot_binomial_half(n, p[c], &st, tally);
       }
     }
     out[c] = x;
     n -= x;
-    mass -= cc;
   }
   out[BOOT_CELLS - 1] = n;
 }

@@ -94,11 +94,11 @@ _RMQ_ARGTYPES = [_P, ctypes.c_int64] + [_P] * 6 + [_I]
 # switch in place of the stream
 _REPLAY_ARGTYPES = ([_P, _P, ctypes.c_int64] + [_P] * 7 + [_I] * 3
                     + [_P, _P, ctypes.c_int64] + [_P] * 6 + [_I] * 6)
-# andix_evpack_encode's (evpack_lane.cuh, evpack.cu): the sorted lanes,
-# their slots, the q, s and len buffers, cnt, k, the lane count, esc_cap
-# and the output; the CUDA entry adds its scratch and the stream, the host
-# twin its block-size switch
-_EVPACK_ARGTYPES = [_P] * 5 + [ctypes.c_int64] * 2 + [_I] * 2 + [_P]
+# andix_evpack_encode's (evpack_lane.cuh, evpack.cu): the lane, q, s and
+# len buffers, cnt, k, the lane count, esc_cap and the output; the CUDA
+# entry adds its scratch, the scratch's bytes and the stream, the host
+# twin its tile-size switch and its tile order's seed
+_EVPACK_ARGTYPES = [_P] * 4 + [ctypes.c_int64] * 2 + [_I] * 2 + [_P]
 # andix_sa_keys's (doubling.cu): the mode, the text or rank, the tail's
 # suffixes and heads, m, n, k, the base width, the keys and the suffixes
 # out, the part counts, the part shift and the parts; andix_sa_rerank's:
@@ -245,10 +245,11 @@ def _load_cuda():
     lib.andix_replay_splice.restype = _I
     lib.andix_replay_seg_ints.argtypes = [_I]
     lib.andix_replay_seg_ints.restype = _I
-    lib.andix_evpack_encode.argtypes = _EVPACK_ARGTYPES + [_P] * 4
+    lib.andix_evpack_encode.argtypes = _EVPACK_ARGTYPES + [
+        _P, ctypes.c_int64, _P]
     lib.andix_evpack_encode.restype = _I
-    lib.andix_evpack_pairs.argtypes = []
-    lib.andix_evpack_pairs.restype = _I
+    lib.andix_evpack_scratch_bytes.argtypes = [ctypes.c_int64, _I]
+    lib.andix_evpack_scratch_bytes.restype = ctypes.c_int64
     lib.andix_bootstrap_resample.argtypes = [_P, _I, _I, ctypes.c_uint, _P,
                                              _P]
     lib.andix_bootstrap_resample.restype = _I
@@ -321,7 +322,7 @@ def _load_cpu_twin():
     lib.andix_replay_equal_cpu.restype = _I
     lib.andix_replay_seg_ints_cpu.argtypes = [_I]
     lib.andix_replay_seg_ints_cpu.restype = _I
-    lib.andix_evpack_encode_cpu.argtypes = _EVPACK_ARGTYPES + [_I]
+    lib.andix_evpack_encode_cpu.argtypes = _EVPACK_ARGTYPES + [_I, _I]
     lib.andix_evpack_encode_cpu.restype = _I
     lib.andix_bootstrap_resample_cpu.argtypes = [_P, _I, _I, ctypes.c_uint,
                                                  _P, _P]

@@ -7,7 +7,8 @@ Run from the repository root, on a machine with a card:
 
     python3 bench_kernels.py [--tree DIR] [--reps 20]
                              [--what all | a list of
-                                     scan,walk,plcp,rmq,replay,sa,cli]
+                                     scan,walk,plcp,rmq,replay,sa,evpack,
+                                     boot,cli]
                              [--segments 1,8,16,32]
                              [--windows 19,20,21,22,23,24]
 
@@ -37,7 +38,16 @@ a tree from before the doubling kernels, that is the torch loop); with
 again with the scatter forced into windows of 2^s suffixes for each s
 listed and forced direct, each with one traced run's full-round and
 tail-round rerank and pair-scatter ms and each tail round's entries and
-ms, so the window and the tail rule can be read off.  ``--what cli``
+ms, so the window and the tail rule can be read off.  ``--what evpack``
+runs the 8 x 1 and 8 x 5 Mbp families on the subject-index schedule,
+keeps every walk dispatch's event buffers, holds the encode to its plain
+version on each and times it (``chip_smoke.encode_split``: the call, its
+device time in the hand kernels, the library sort and the rest, and
+``torch.sort(stable=True)`` of the same keys).  ``--what boot`` times the
+resampler at ``chip_smoke.phase_bootstrap``'s 406 pairs x 1000 rounds and
+again with each pair repeated 32 times in a row over 32 rounds, where a
+warp of a thread-a-(round, pair) kernel holds 32 copies of one pair: the
+two times show what pairs that differ inside a warp cost.  ``--what cli``
 (not in ``all``) runs the CLI on the 8 x 5 Mbp family under
 ``ANDIX_INDEX=subject`` and ``joint``, three times each in turns, and
 prints each run's wall with its "sx: index build" or "SA doubling"
@@ -90,11 +100,11 @@ def main(argv=None) -> int:
                     "time the doubling loop's partitioned scatter too")
     ap.add_argument("--what", default="all",
                     help="all, or a comma-separated list of scan, walk, "
-                    "plcp, rmq, replay, sa, cli")
+                    "plcp, rmq, replay, sa, evpack, boot, cli")
     args = ap.parse_args(argv)
     what = set(args.what.split(","))
     if not what <= {"all", "scan", "walk", "plcp", "rmq", "replay", "sa",
-                    "cli"}:
+                    "evpack", "boot", "cli"}:
         ap.error(f"--what {args.what}")
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
@@ -162,6 +172,10 @@ def main(argv=None) -> int:
     if wants("sa"):
         windows = [int(w) for w in args.windows.split(",") if w]
         out.update(_sa(cs, dev, max(1, args.reps // 4), windows))
+    if wants("evpack"):
+        out.update(_evpack(cs, max(1, args.reps // 4)))
+    if wants("boot"):
+        out.update(_boot(cs, max(1, args.reps // 4)))
     if "cli" in what:
         out.update(_cli(cs))
     print(json.dumps(out), flush=True)
@@ -281,6 +295,64 @@ def _sa_windows(cs, label, sym, L, base, reps, windows):
               + ", ".join(f"{k} {v:.4f}" for k, v in sums.items())
               + f"; tail rounds (entries:ms) {' '.join(tails)}", flush=True)
         out[f"sa_loop_ms {label} window {name}"] = ms
+    return out
+
+
+def _evpack(cs, reps):
+    """The packed encode on every walk dispatch of the 8 x 1 and 8 x 5 Mbp
+    subject-index runs: held to the plain version, then timed and split
+    (``chip_smoke.encode_split``)."""
+    import tempfile
+
+    from andix_torch import subject_pipeline as sp
+    from andix_torch.chain import evpack
+
+    out = {}
+    for length in (1_000_000, 5_000_000):
+        label = f"8x{length // 1_000_000}Mbp"
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = cs.write_fasta(tmp, cs.make_family(8, length))
+            _, kept = cs.keep_dispatches(paths, tmp, label)
+        for d, (ev4, cnt, lb, ecap) in enumerate(kept):
+            k = min(sp.bucket(max(cnt, 1), 4096), ecap)
+            if cs.max_abs_err(
+                    [evpack.encode_events_flat(*ev4, cnt, k, lb)],
+                    [evpack.encode_events_plain(*ev4, cnt, k, lb)]):
+                raise AssertionError(f"evpack {label} dispatch {d}: kernel "
+                                     "!= plain")
+            split = cs.encode_split(ev4, cnt, k, lb, reps)
+            print(f"evpack {label} dispatch {d} ({cnt} events, k {k}, {lb} "
+                  f"lanes): {cs.split_text(split)}; == plain", flush=True)
+            out[f"evpack_ms {label} dispatch {d}"] = split["ms"]
+        del kept
+        torch.cuda.empty_cache()
+    return out
+
+
+def _boot(cs, reps):
+    """The resampler at chip_smoke's 406 pairs (the 8 x 5 Mbp family's
+    averaged count matrices) x 1000 rounds, and with each pair repeated
+    32 times in a row over 32 rounds (the same draws' work, about)."""
+    from andix_torch import bootstrap, pipeline
+    from andix_torch.runtime import Context
+    from andix_torch.sequence import Seq
+
+    grid = pipeline.calculate_matrix(
+        [Seq(d, nm) for nm, d in cs.make_family(8, 5_000_000)], Context(),
+        [torch.device("cuda", 0)])
+    pairs = cs.boot_pairs(cs.averaged_pairs(grid))
+    counts = torch.from_numpy(np.stack([p.counts for p in pairs]).astype(
+        np.int64)).to("cuda")
+    out = {}
+    for label, ct, rounds in (
+            (f"{counts.shape[0]} pairs x {cs.BOOT_ROUNDS} rounds", counts,
+             cs.BOOT_ROUNDS),
+            (f"{counts.shape[0]} pairs each 32 times x 32 rounds",
+             counts.repeat_interleave(32, dim=0), 32)):
+        ms = cs.cuda_ms(lambda: bootstrap.resample(ct, rounds, cs.BOOT_SEED),
+                        reps)
+        print(f"bootstrap_resample {label}: {ms:.4f} ms", flush=True)
+        out[f"bootstrap_ms {label}"] = ms
     return out
 
 

@@ -76,9 +76,11 @@ line each; any failed phase raises and the script exits non-zero:
    under ``ANDIX_CHAIN_SEGMENTS=1`` (``andix``'s unsegmented events walk,
    one launch, every event in one buffer: the default run's bytes,
    ``phase_unsegmented``); the packed event fetch (``phase_evpack``): at
-   8 x 1 and 8 x 5 Mbp on the subject index, the encode kernel against
-   its plain version on every dispatch, exactly, with each dispatch's
-   events, bytes fetched raw and packed, encode, copy and decode times,
+   8 x 1 and 8 x 5 Mbp on the subject index, the encode kernels against
+   their plain version on every dispatch, exactly, with each dispatch's
+   events, bytes fetched raw and packed, encode, copy and decode times
+   (the encode's device time split into its two kernels and CUB's sort,
+   beside ``torch.sort(stable=True)`` of the same keys),
    then three runs of each fetch (``ANDIX_EVPACK=1`` and ``0``) in turns,
    each with the joint bytes, and their "sx: segmented walk" phases; and
    the device bootstrap resampler (``phase_bootstrap``) at 406 pairs x
@@ -1517,7 +1519,6 @@ def phase_unsegmented(dev, tmp, card, paths, out_default):
     run's averaged count matrices (the 28 pairs), read from its
     ``calculate_matrix``."""
     from andix_torch import pipeline
-    from andix_torch.model import model_average
 
     _anchors_walk(dev, "8x50kbp", make_family(8, 50_000), True)
     _anchors_walk(dev, "8x5Mbp", make_family(8, 5_000_000), False)
@@ -1545,10 +1546,7 @@ def phase_unsegmented(dev, tmp, card, paths, out_default):
                              f"{out == out_default}")
     say("  8x5Mbp ANDIX_CHAIN_SEGMENTS=1: one unsegmented walk launch, "
         "no overflow, PHYLIP == the default run's")
-    M = grids[0]
-    n = len(M)
-    return [model_average(M[i][j], M[j][i])
-            for i in range(n) for j in range(i + 1, n)]
+    return averaged_pairs(grids[0])
 
 
 def evpack_bound(cnt: int, k: int, lanes: int) -> tuple[int, float]:
@@ -1562,13 +1560,83 @@ def evpack_bound(cnt: int, k: int, lanes: int) -> tuple[int, float]:
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
+# the encode's hand kernels by their profiler names (and the first
+# version's three, so bench_kernels.py --tree can split an older tree's)
+_EVPACK_KERNELS = ("evpack_key_kernel", "evpack_encode_kernel",
+                   "fields_kernel", "scan_kernel", "escapes_kernel")
+
+
+def encode_split(ev4, cnt: int, k: int, lanes: int, reps: int = 5) -> dict:
+    """One encode call timed (CUDA events, ``reps`` calls) and its device
+    time split under torch.profiler: each hand kernel, the library sort
+    (CUB's radix-sort kernels) and the rest (fills, copies); beside it
+    ``torch.sort(stable=True)`` of the same keys (the ``cnt`` live
+    lanes), its call ms and device ms.  Milliseconds a call."""
+    from andix_torch.chain import evpack
+
+    def kernel():
+        return evpack.encode_events_flat(*ev4, cnt, k, lanes)
+
+    out = {"ms": cuda_ms(kernel, reps), "kernels": {}, "sort": 0.0,
+           "rest": 0.0}
+    for name, v in device_split(kernel, reps).items():
+        if name.startswith(_EVPACK_KERNELS):
+            out["kernels"][name] = v
+        elif "radixsort" in name.lower():
+            out["sort"] += v
+        else:
+            out["rest"] += v
+    key = ev4[0][:cnt].clone()  # the keys the library sort takes
+
+    def torch_sort():
+        return torch.sort(key, stable=True)
+
+    out["torch_sort_ms"] = cuda_ms(torch_sort, reps)
+    out["torch_sort_device_ms"] = sum(device_split(torch_sort, reps).values())
+    return out
+
+
+def split_text(sp: dict) -> str:
+    own = sum(sp["kernels"].values())
+    return (f"encode {sp['ms']:.4f} ms: device {own:.4f} in its kernels ("
+            + ", ".join(f"{n} {v:.4f}" for n, v in sp["kernels"].items())
+            + f"), {sp['sort']:.4f} in the library sort, {sp['rest']:.4f} "
+            f"other; torch.sort(stable=True) of the same keys "
+            f"{sp['torch_sort_ms']:.4f} ms (device "
+            f"{sp['torch_sort_device_ms']:.4f})")
+
+
+def keep_dispatches(paths, tmp, label):
+    """A subject-schedule CLI run on the card whose every walk dispatch's
+    raw event buffers are kept: (PHYLIP, [(the first k slots of the four
+    buffers, cnt, lanes, cap)])."""
+    from andix_torch import subject_pipeline as sp
+
+    kept = []
+    orig = sp._fetch_events
+
+    def keeping(ev4, cnt, lb, ecap):
+        k = min(sp.bucket(max(cnt, 1), 4096), ecap)
+        kept.append(([x[:k].clone() for x in ev4], cnt, lb, ecap))
+        return orig(ev4, cnt, lb, ecap)
+
+    sp._fetch_events = keeping
+    try:
+        out, _, _, _, _ = _cli_run(paths, "subject", tmp,
+                                   f"{label} subject, dispatches kept")
+    finally:
+        sp._fetch_events = orig
+    return out, kept
+
+
 def _fetch_dispatches(label, dispatches):
     """Per dispatch of a subject run (its buffers, cnt, lanes, cap): the
-    encode (sort + kernel) against its plain version on the card, exactly;
-    events, bytes moved by each fetch, the encode's ms (CUDA events, 5
-    calls) and its device split, the plain ms, the copies' ms and the host
-    decode's ms (host clock).  Returns (max_abs_err, the largest
-    dispatch's (ms, plain ms, bound ms))."""
+    encode (key kernel, library sort, encode kernel) against its plain
+    version on the card, exactly; events, bytes moved by each fetch, the
+    encode's ms and its device split (``encode_split``, with
+    ``torch.sort`` of the same keys beside the library sort), the plain
+    ms, the copies' ms and the host decode's ms (host clock).  Returns
+    (max_abs_err, the largest dispatch's (ms, plain ms, bound ms))."""
     from andix_torch import subject_pipeline as sp
     from andix_torch.chain import evpack
 
@@ -1576,24 +1644,18 @@ def _fetch_dispatches(label, dispatches):
     for d, (ev4, cnt, lb, ecap) in enumerate(dispatches):
         k = min(sp.bucket(max(cnt, 1), 4096), ecap)
 
-        def kernel():
-            return evpack.encode_events_flat(*ev4, cnt, k, lb)
-
         def plain():
             return evpack.encode_events_plain(*ev4, cnt, k, lb)
 
-        got, ref = kernel(), plain()
+        got, ref = evpack.encode_events_flat(*ev4, cnt, k, lb), plain()
         torch.cuda.synchronize()
         e = max_abs_err([got], [ref])
         if e:
             raise AssertionError(f"evpack {label} dispatch {d}: kernel != "
                                  f"plain, max_abs_err {e}")
         err = max(err, e)
-        ms = cuda_ms(kernel, 5)
-        split = device_split(kernel, 5)
-        own = sum(v for n, v in split.items()
-                  if n.startswith(("fields_kernel", "scan_kernel",
-                                   "escapes_kernel")))
+        split = encode_split(ev4, cnt, k, lb)
+        ms = split["ms"]
         plain_ms = cuda_ms(plain, 1)
         t0 = time.perf_counter()
         flat = got.cpu().numpy()
@@ -1622,9 +1684,8 @@ def _fetch_dispatches(label, dispatches):
             f"lanes, {int(parts[3])} escapes of {evpack.esc_capacity(lb)}"
             + (" (escape overflow: the fetch takes the raw buffers)"
                if esc_ovf else "") + f"; raw fetch {16 * cnt} B, "
-            f"packed fetch {4 * evpack.encoded_size(k, lb)} B; encode "
-            f"{ms:.4f} ms (its kernels {own:.4f} ms, the sort and the rest "
-            f"{ms - own:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"packed fetch {4 * evpack.encoded_size(k, lb)} B; "
+            f"{split_text(split)}; plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.6f} ms ({nbytes} B, {100 * bound_ms / ms:.2f}% of "
             f"the encode); copies raw {raw_copy:.3f} ms, packed "
             f"{packed_copy:.3f} ms; host decode {decode_ms:.3f} ms; kernel "
@@ -1646,27 +1707,12 @@ def phase_evpack(tmp, card, runs, sx_launches_5m):
     Mbp by more than the spread of the three runs; the line says which.
     Returns (kernel ms, plain ms, bound ms of the largest 8 x 5 Mbp
     dispatch, max_abs_err, the 8 x 5 Mbp main run's encode launches)."""
-    from andix_torch import subject_pipeline as sp
-
     if sx_launches_5m["evpack_encode"] <= 0:
         raise AssertionError(f"the 8x5Mbp subject run did not launch the "
                              f"encode: {sx_launches_5m}")
     err, row = 0, None
     for label, paths, out_joint in runs:
-        kept = []
-        orig = sp._fetch_events
-
-        def keeping(ev4, cnt, lb, ecap):
-            k = min(sp.bucket(max(cnt, 1), 4096), ecap)
-            kept.append(([x[:k].clone() for x in ev4], cnt, lb, ecap))
-            return orig(ev4, cnt, lb, ecap)
-
-        sp._fetch_events = keeping
-        try:
-            out, _, _, _, _ = _cli_run(paths, "subject", tmp,
-                                       f"{label} subject, dispatches kept")
-        finally:
-            sp._fetch_events = orig
+        out, kept = keep_dispatches(paths, tmp, label)
         if out != out_joint:
             raise AssertionError(f"{label} subject (kept) PHYLIP != joint")
         e, r = _fetch_dispatches(label, kept)
@@ -1706,6 +1752,7 @@ def phase_evpack(tmp, card, runs, sx_launches_5m):
 
 BOOT_PAIRS = 406  # 29 genomes: the eco29 grid's pairs
 BOOT_ROUNDS = 1000
+BOOT_SEED = 2026
 FP64_OPS_PER_S = 34e12  # H100 SXM, FP64 outside the tensor cores (data sheet)
 
 
@@ -1724,6 +1771,24 @@ def boot_bound(pairs: int, rounds: int, tally) -> tuple[int, float, float]:
             ops / FP64_OPS_PER_S * 1e3)
 
 
+def averaged_pairs(M):
+    """The upper triangle's averaged count matrices of a count grid."""
+    from andix_torch.model import model_average
+
+    n = len(M)
+    return [model_average(M[i][j], M[j][i])
+            for i in range(n) for j in range(i + 1, n)]
+
+
+def boot_pairs(averaged):
+    """The resampler's ``BOOT_PAIRS`` pairs: ``averaged`` tiled, then one
+    all-zero pair."""
+    from andix_torch.model import CountMatrix
+
+    pairs = [averaged[i % len(averaged)] for i in range(BOOT_PAIRS - 1)]
+    return pairs + [CountMatrix.zero(10)]
+
+
 def phase_bootstrap(averaged):
     """The device bootstrap resampler at 406 pairs (the 8 x 5 Mbp
     family's 28 averaged count matrices tiled, one all-zero pair) x 1000
@@ -1735,11 +1800,9 @@ def phase_bootstrap(averaged):
     the bound.  Returns (ms, plain ms, bound ms, bound_by, max_abs_err,
     launches)."""
     from andix_torch import bootstrap, kernels
-    from andix_torch.model import CountMatrix
 
-    pairs = [averaged[i % len(averaged)] for i in range(BOOT_PAIRS - 1)]
-    pairs.append(CountMatrix.zero(10))
-    seed = 2026
+    pairs = boot_pairs(averaged)
+    seed = BOOT_SEED
     kernels.reset_launches()
     out = bootstrap.device_bootstrap_rounds(pairs, BOOT_ROUNDS, seed)
     launches = kernels.launches["bootstrap_resample"]

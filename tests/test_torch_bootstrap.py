@@ -157,6 +157,42 @@ def test_plain_equals_twin(seed):
     assert (plain.sum(dim=2) == counts.sum(dim=1)[None]).all()
 
 
+def _warp_pairs(n):
+    """``n`` pairs for the kernel's warp mapping: the mixed pairs tiled,
+    and, when there is room, an all-zero pair, a lone cell (cc == mass
+    at its cell) and a total near 2^52 (2^52 - 1: a cell of 2^41, one of
+    12,345, one of 9, the rest in cell 0)."""
+    mixed = [p.counts for p in _mixed()]
+    if n == 1:
+        return np.stack(mixed[:1])
+    big = np.zeros(16, np.int64)
+    big[[5, 10, 15]] = [1 << 41, 12_345, 9]
+    big[0] = (1 << 52) - 1 - big.sum()
+    lone = np.zeros(16, np.int64)
+    lone[13] = 4321
+    tail = [np.zeros(16, np.int64), lone, big]
+    return np.stack([mixed[i % len(mixed)] for i in range(n - 3)] + tail)
+
+
+@pytest.mark.parametrize("pairs", [1, 406])
+@pytest.mark.parametrize("rounds", [1, 31, 33, 1000])
+def test_twin_at_the_warp_mapping_equals_plain(pairs, rounds):
+    """The twin runs the kernel's mapping (a pair's rounds 32 at a time,
+    tail lanes masked); it draws the plain version's counts bit for bit
+    at round counts below, just past and far past one warp."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to build the kernel's host twin")
+    counts = torch.from_numpy(_warp_pairs(pairs))
+    twin = bootstrap.resample_cpu_twin(counts, rounds, 31 + rounds)
+    plain = bootstrap.resample_plain(counts, rounds, 31 + rounds)
+    assert twin.shape == (rounds, pairs, 16)
+    assert torch.equal(twin, plain)
+    assert (twin.sum(dim=2) == counts.sum(dim=1)[None]).all()
+    if pairs > 1:
+        assert (twin[:, -3] == 0).all() and (twin[:, -2, 13] == 4321).all()
+        assert (twin[:, -1, [1, 2, 3]] == 0).all()
+
+
 def test_philox_known_answers():
     """Random123's known answers for Philox4x32-10."""
     cases = [((0, 0, 0, 0), (0, 0),

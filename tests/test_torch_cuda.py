@@ -682,16 +682,74 @@ def _event_stream(cnt, n_lanes, seed, esc_frac):
     return np.stack([lane, q, s, ln]).astype(np.int32)
 
 
-@pytest.mark.parametrize("cnt,k,n_lanes", [
-    (0, 4096, 64), (1, 7, 8), (3000, 4096, 64), (3001, 3001, 64),
-    (5000, 6144, 4),  # more escapes than esc_cap = 4096
-    (650_000, 786_432, 512), (1_000_001, 1_000_001, 8192)])
-def test_evpack_kernel_equals_twin_and_plain(cuda, cnt, k, n_lanes):
-    """The packed-fetch kernel's one output buffer (packed fields, escape
+def _sorted_events(runs, esc_at, seed):
+    """Events whose lane-major order is known (tests/test_torch_evpack.py's
+    ``_runs``): lane l holds runs[l] events in chain order, and exactly
+    those at the sorted positions ``esc_at`` escape (a diagonal jump of
+    40,000); the buffer interleaves the lanes."""
+    rng = np.random.default_rng(seed)
+    esc = np.zeros(sum(runs), bool)
+    esc[list(esc_at)] = True
+    lane = np.repeat(np.arange(len(runs)), runs)
+    ln = rng.integers(10, 300, len(lane))
+    step = ln + 1 + rng.integers(0, 200, len(lane))
+    q, s = np.zeros(len(lane), np.int64), np.zeros(len(lane), np.int64)
+    start = np.cumsum(runs) - runs
+    for k, run in enumerate(runs):
+        sel = slice(start[k], start[k] + run)
+        q[sel] = rng.integers(0, 60_000) + np.cumsum(step[sel]) - step[sel]
+        s[sel] = q[sel] + rng.integers(0, 30_000) + 40_000 * np.cumsum(
+            esc[sel])
+    arr = np.stack([lane, q, s, ln]).astype(np.int32)
+    buf = arr[:, rng.permutation(arr.shape[1])]
+    for k in range(len(runs)):
+        buf[1:, buf[0] == k] = arr[1:, arr[0] == k]
+    return buf
+
+
+# sorted positions: the encode kernel's tile of 2048 and the twin's of 8
+_EV_TILE, _EV_TINY = 2048, 8
+_EVENT_STREAMS = {
+    "edges": lambda: _sorted_events([100] * 60 + [0] * 4, [
+        7, 8, 15, 16, _EV_TILE - 1, _EV_TILE, 2 * _EV_TILE - 1,
+        2 * _EV_TILE, 2 * _EV_TILE + 1, 5999], 21),
+    "escape_tile": lambda: _sorted_events(
+        [625] * 8, list(range(8, 16)) + list(range(_EV_TILE, 2 * _EV_TILE)),
+        22),
+    "esc_cap": lambda: _sorted_events([750] * 8, np.random.default_rng(
+        23).choice(6000, 4096, replace=False), 23),
+    "esc_cap_plus1": lambda: _sorted_events([750] * 8, np.random.default_rng(
+        24).choice(6000, 4097, replace=False), 23),
+    "empty_lanes": lambda: _sorted_events(
+        [0, 0] + [50] * 15 + [0] * 4 + [50] * 16 + [0] * 3,
+        [0, 49, 50, 700, 1549], 24),
+}
+
+
+@pytest.mark.parametrize("stream,cnt,k,n_lanes", [
+    ("random", 0, 4096, 64), ("random", 1, 7, 8), ("random", 3000, 4096, 64),
+    ("random", 3001, 3001, 64),
+    ("random", 5000, 6144, 4),  # more escapes than esc_cap = 4096
+    ("random", 650_000, 786_432, 512), ("random", 1_000_001, 1_000_001, 8192),
+    # the largest 8 x 5 Mbp subject dispatch's shape
+    ("random", 1_274_839, 1_572_864, 8192),
+    # more lanes than a 48 KB shared histogram's 12,288 bins
+    ("random", 200_000, 262_144, 20_000),
+    ("edges", 6000, 8192, 64), ("edges", 6000, 6001, 64),
+    ("escape_tile", 5000, 8192, 8), ("esc_cap", 6000, 8192, 8),
+    ("esc_cap_plus1", 6000, 8192, 8), ("empty_lanes", 1550, 2048, 40)])
+def test_evpack_kernel_equals_twin_and_plain(cuda, stream, cnt, k, n_lanes):
+    """The packed-fetch kernels' one output buffer (packed fields, escape
     records, per-lane counts, n_esc and the overflow flag) equals the host
-    twin's and the plain version's exactly, garbage past cnt, odd k and an
-    escape overflow included."""
-    ev = _event_stream(cnt, n_lanes, cnt, 0.9 if n_lanes == 4 else 0.001)
+    twin's and the plain version's exactly, garbage past cnt, odd k, an
+    escape overflow, escapes across tile edges, a tile of escapes, exactly
+    esc_cap escapes and one more, empty lanes and 20,000 lanes
+    included."""
+    if stream == "random":
+        ev = _event_stream(cnt, n_lanes, cnt,
+                           0.9 if n_lanes == 4 else 0.001)
+    else:
+        ev = _EVENT_STREAMS[stream]()
     rng = np.random.default_rng(k)
     buf = rng.integers(-2**31, 2**31, (4, k + 3)).astype(np.int32)
     buf[:, :cnt] = ev
@@ -705,7 +763,9 @@ def test_evpack_kernel_equals_twin_and_plain(cuda, cnt, k, n_lanes):
     assert torch.equal(got.cpu(), twin) and torch.equal(twin, plain)
     _, _, counts, n_esc, esc_ovf = evpack.split_encoded(plain, k, n_lanes)
     assert int(counts.sum()) == cnt
-    assert bool(esc_ovf) == (n_lanes == 4)
+    assert bool(esc_ovf) == (n_lanes == 4 or stream == "esc_cap_plus1")
+    if stream.startswith("esc_cap"):
+        assert int(n_esc) == 4096 + stream.endswith("plus1")
     if not bool(esc_ovf):
         packed, esc, counts, n_esc, _ = evpack.split_encoded(got.cpu(), k,
                                                              n_lanes)
@@ -716,27 +776,32 @@ def test_evpack_kernel_equals_twin_and_plain(cuda, cnt, k, n_lanes):
             assert (a == b).all()
 
 
-@pytest.mark.parametrize("rounds,seed", [(1, 0), (200, 7), (1000, 2**33 + 5)])
-def test_bootstrap_kernel_equals_twin_and_plain(cuda, rounds, seed):
+@pytest.mark.parametrize("pairs,rounds,seed", [
+    (40, 1, 0), (40, 200, 7), (40, 1000, 2**33 + 5), (40, 31, 1),
+    (40, 33, 2), (406, 33, 3), (406, 1000, 4)])
+def test_bootstrap_kernel_equals_twin_and_plain(cuda, pairs, rounds, seed):
     """The resampler kernel draws the host twin's counts exactly (the same
-    Philox words and float64 operations), and the plain version's on the
-    card; totals kept, the zero pair zero."""
+    Philox words and float64 operations, a warp a pair's 32 rounds, tail
+    lanes masked), and the plain version's on the card; totals kept (one
+    near 2^52), the zero pair zero, a lone cell whole."""
     rng = np.random.default_rng(seed % 1000)
-    counts = rng.integers(0, 60_000, (40, 16)) * (rng.random((40, 16)) < 0.5)
+    counts = rng.integers(0, 60_000, (pairs, 16)) * (
+        rng.random((pairs, 16)) < 0.5)
     counts[3] = 0
     counts[4] = 0
     counts[4, 9] = 77
     counts[5, :4] = [3, 1, 0, 2]
     counts[6, 0] = (1 << 25) + 3
+    counts[7, [0, 5, 10]] = [(1 << 52) - (1 << 41) - 12_346, 1 << 41,
+                             12_345]
     host = torch.from_numpy(counts.astype(np.int64))
     before = kernels.launches["bootstrap_resample"]
     got = bootstrap.resample(host.to(cuda), rounds, seed)
     assert kernels.launches["bootstrap_resample"] == before + 1
     twin = bootstrap.resample_cpu_twin(host, rounds, seed)
     assert torch.equal(got.cpu(), twin)
-    if rounds <= 200:
-        assert torch.equal(bootstrap.resample_plain(host.to(cuda), rounds,
-                                                    seed).cpu(), twin)
+    assert torch.equal(bootstrap.resample_plain(host.to(cuda), rounds,
+                                                seed).cpu(), twin)
     assert (twin.sum(dim=2) == host.sum(dim=1)[None]).all()
     assert (twin[:, 3] == 0).all() and (twin[:, 4, 9] == 77).all()
 

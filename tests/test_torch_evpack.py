@@ -81,6 +81,74 @@ def _escape_overflow():
     return _all_escapes(5000, 8, 13)
 
 
+def _runs(runs, esc_at, seed):
+    """Events whose sorted (lane-major) order is known: lane l holds
+    runs[l] events in chain order, and exactly the events at the sorted
+    positions ``esc_at`` escape (a diagonal jump of 40,000; first events
+    start below q 60,000 and diagonal 30,000, later ones step q by at most
+    500); the buffer interleaves the lanes."""
+    rng = np.random.default_rng(seed)
+    esc = np.zeros(sum(runs), bool)
+    esc[list(esc_at)] = True
+    events, pos = [], 0
+    for lane, run in enumerate(runs):
+        q, diag = int(rng.integers(0, 60_000)), int(rng.integers(0, 30_000))
+        for _ in range(run):
+            diag += 40_000 * int(esc[pos])
+            ln = int(rng.integers(10, 300))
+            events.append((lane, q, q + diag, ln))
+            q += ln + 1 + int(rng.integers(0, 200))
+            pos += 1
+    arr = np.array(events, dtype=np.int64).T.astype(np.int32)
+    buf = arr[:, rng.permutation(arr.shape[1])]
+    for lane in range(len(runs)):
+        buf[1:, buf[0] == lane] = arr[1:, arr[0] == lane]
+    return buf, len(runs)
+
+
+# the encode kernel's tile, in sorted positions (evpack_lane.cuh), and the
+# twin's tiny one
+TILE, TINY = 2048, 8
+
+
+def _tile_edges():
+    """Escapes on both sides of tile edges, the kernel's and the tiny
+    ones, and at the last live position; 6000 events in 60 of 64 lanes."""
+    edges = [TINY - 1, TINY, 2 * TINY - 1, 2 * TINY, TILE - 1, TILE,
+             2 * TILE - 1, 2 * TILE, 2 * TILE + 1, 5999]
+    return _runs([100] * 60 + [0] * 4, edges, 21)
+
+
+def _escape_tile():
+    """A kernel tile (sorted positions 2048-4095) and a tiny one (8-15)
+    made only of escapes; 5000 events in 8 lanes."""
+    return _runs([625] * 8, list(range(TINY, 2 * TINY))
+                 + list(range(TILE, 2 * TILE)), 22)
+
+
+def _esc_cap(extra):
+    """esc_cap + extra escapes (8 lanes: esc_cap = 4096) among 6000
+    events."""
+    rng = np.random.default_rng(23 + extra)
+    return _runs([750] * 8, rng.choice(6000, 4096 + extra, replace=False),
+                 23)
+
+
+def _empty_lanes():
+    """Lanes with no events at the start, in the middle and at the end."""
+    runs = [0, 0] + [50] * 15 + [0] * 4 + [50] * 16 + [0] * 3
+    return _runs(runs, [0, 49, 50, 700, 1549], 24)
+
+
+def _wide_lanes():
+    """20,000 lanes, more than a 48 KB shared histogram's 12,288 bins,
+    most of them empty; 5000 events in 1000 lanes spread over all."""
+    rng = np.random.default_rng(25)
+    runs = np.zeros(20_000, np.int64)
+    runs[rng.choice(20_000, 1000, replace=False)] = 5
+    return _runs(runs.tolist(), rng.choice(5000, 300, replace=False), 25)
+
+
 def _small():
     return np.array([[3], [123456], [99], [7]], np.int32), 8
 
@@ -120,7 +188,12 @@ def _stream(name, dispatches):
         return ev, cnt, k, lb
     arr, n_lanes = {"chainlike": _chainlike, "all_escapes": _all_escapes,
                     "escape_overflow": _escape_overflow, "small": _small,
-                    "empty": _empty}[name.split("-")[0]]()
+                    "empty": _empty, "tile_edges": _tile_edges,
+                    "escape_tile": _escape_tile,
+                    "esc_cap": lambda: _esc_cap(0),
+                    "esc_cap_plus1": lambda: _esc_cap(1),
+                    "empty_lanes": _empty_lanes,
+                    "wide_lanes": _wide_lanes}[name.split("-")[0]]()
     cnt = arr.shape[1]
     k = max(16, 1 << int(max(cnt, 1) - 1).bit_length())
     if name.endswith("-odd"):
@@ -146,25 +219,35 @@ def _andix(ev, cnt, k, n_lanes):
 
 
 def _port(route, ev, cnt, k, n_lanes):
+    """The port's encoding by ``route``: ``plain``, or the twin at the
+    kernel's tile size (``twin``) or the tiny one (``twin-tiny``), its
+    tiles in the order shuffled by seed 0, or by the seed a ``-s<seed>``
+    suffix names."""
     t = [torch.from_numpy(np.ascontiguousarray(x)) for x in ev]
     if route == "plain":
         flat = evpack.encode_events_plain(*t, cnt, k, n_lanes)
     else:
         if shutil.which("g++") is None:
             pytest.skip("g++ is needed to build the kernel's host twin")
+        base, _, seed = route.partition("-s")
         flat = evpack.encode_events_cpu_twin(*t, cnt, k, n_lanes,
-                                             tiny=route == "twin-tiny")
+                                             tiny=base == "twin-tiny",
+                                             seed=int(seed or 0))
     assert flat.dtype == torch.int32
     assert flat.shape == (evpack.encoded_size(k, n_lanes),)
     return flat.numpy()
 
 
 STREAMS = (["chainlike", "chainlike-odd", "all_escapes", "escape_overflow",
-            "small", "small-odd", "empty"]
+            "small", "small-odd", "empty", "tile_edges", "tile_edges-odd",
+            "escape_tile", "esc_cap", "esc_cap_plus1", "empty_lanes",
+            "wide_lanes"]
            + [f"dispatch{i}" for i in range(2)])
+OVERFLOWS = ("escape_overflow", "esc_cap_plus1")
 
 
-@pytest.mark.parametrize("route", ["plain", "twin", "twin-tiny"])
+@pytest.mark.parametrize("route", ["plain", "twin", "twin-tiny",
+                                   "twin-s7", "twin-tiny-s7"])
 @pytest.mark.parametrize("name", STREAMS)
 def test_encode_equals_andix(dispatches, name, route):
     ev, cnt, k, n_lanes = _stream(name, dispatches)
@@ -179,12 +262,11 @@ def test_encode_equals_andix(dispatches, name, route):
     assert (esc == ref[1]).all()
     assert (counts == ref[2]).all()
     assert int(n_esc) == int(ref[3]) and bool(esc_ovf) == bool(ref[4])
-    assert bool(esc_ovf) == (name == "escape_overflow")
+    assert bool(esc_ovf) == (name in OVERFLOWS)
 
 
 @pytest.mark.parametrize("route", ["plain", "twin-tiny"])
-@pytest.mark.parametrize("name", [s for s in STREAMS
-                                  if s != "escape_overflow"])
+@pytest.mark.parametrize("name", [s for s in STREAMS if s not in OVERFLOWS])
 def test_decode_gives_the_lane_major_stream(dispatches, name, route):
     ev, cnt, k, n_lanes = _stream(name, dispatches)
     if route == "plain":  # the public tuple; CPU tensors take the plain

@@ -50,7 +50,7 @@ OURS = ("chain_walk_flat_kernel", "walk_sx", "flag_scan", "finals_kernel",
         "tg_kernel", "replay_rows_kernel", "replay_cold_kernel",
         "replay_splice_kernel", "initial_key_kernel", "round_key_kernel",
         "full_key_kernel", "tail_key_kernel", "rerank_kernel",
-        "pair_scatter_kernel")
+        "pair_scatter_kernel", "evpack_key_kernel", "evpack_encode_kernel")
 
 
 def _device_items(prof):
