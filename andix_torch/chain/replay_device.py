@@ -31,7 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, spans
 from ..esa import matchstats, rmq
 from . import segmented
 
@@ -101,16 +101,19 @@ def fetch_walk(out, events=None):
     then the events (none after an overflow): ``events(ev4, cnt, lb)``
     when given (the four buffers, the event count, the lane count; it
     returns the [4, cnt] array), else the first ``cnt`` of each buffer as
-    they are."""
+    they are.  Counts ``walk.probe_steps`` and ``walk.events`` on the open
+    span (the driver's ``walk.dispatch``)."""
     (ev_lane, ev_q, ev_s, ev_len, ev_cnt, ovf, iters,
      pos, lq, ls, ll, fin) = out
     lb = pos.shape[0]
     meta = torch.stack([x.to(pos.device, torch.int32)
                         for x in (ev_cnt, ovf, iters)])
-    h = torch.cat([torch.stack([pos, lq, ls, ll, fin.to(torch.int32)])
-                   .reshape(-1), meta]).cpu().numpy()
+    h = spans.readback(torch.cat([
+        torch.stack([pos, lq, ls, ll, fin.to(torch.int32)]).reshape(-1),
+        meta])).numpy()
     state_h = h[: 5 * lb].reshape(5, lb)
     cnt, ovf_h, iters_h = (int(x) for x in h[5 * lb:])
+    spans.count("walk.probe_steps", iters_h)
     if ovf_h:
         return (np.zeros((4, 0), np.int32), state_h[:4],
                 state_h[4].astype(bool), iters_h, True)
@@ -118,7 +121,8 @@ def fetch_walk(out, events=None):
     if events is not None:
         ev = events(ev4, cnt, lb)
     else:
-        ev = torch.stack([x[:cnt] for x in ev4]).cpu().numpy()
+        ev = spans.readback(torch.stack([x[:cnt] for x in ev4])).numpy()
+    spans.count("walk.events", cnt)
     return ev, state_h[:4], state_h[4].astype(bool), iters_h, False
 
 
@@ -434,7 +438,7 @@ def anchor_lanes(subj_start, rs_len, threshold, q_base, q_start, q_len2d,
 
     def dev(x):
         if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+            x = spans.upload(np.ascontiguousarray(x, dtype=np.int32), device)
         return x.to(device, torch.int32)
 
     q_len2d = dev(q_len2d)
@@ -510,8 +514,8 @@ def replay_segments(q_len, sms: int) -> int:
     lengths ``q_len`` on a card of ``sms`` SMs."""
     if not q_len.numel():
         return 1
-    max_qlen, live = torch.stack([q_len.max(),
-                                  (q_len > 0).sum().to(q_len.dtype)]).tolist()
+    max_qlen, live = spans.readback(torch.stack(
+        [q_len.max(), (q_len > 0).sum().to(q_len.dtype)])).tolist()
     if max_qlen < REPLAY_MIN_QLEN:
         return 1
     want = -(-sms * REPLAY_WARPS_PER_SM // max(1, live))
@@ -582,9 +586,10 @@ def _replay_args(isa, rm, text, mlun, ps, lanes, exact_counts, chase,
 
 
 def _replay_checked(out, segments, trail, splice):
-    if int(out["err"]):
-        raise RuntimeError(f"replay_rows: {int(out['err'])} counted "
-                           "intervals reach outside the text")
+    err = int(spans.readback(out["err"]))
+    if err:
+        raise RuntimeError(f"replay_rows: {err} counted intervals reach "
+                           "outside the text")
     if splice is not None:
         splice.update(segments=segments, trail=trail, lanes=out["splice"])
     return out["counts"], out["tally"]
@@ -853,5 +858,6 @@ def replay_lanes(starts, rs_lens, thresholds, q_base, q_start, q_len2d,
     text base, RS length, threshold; per query: blob and text offset; the
     [Sg, G] query lengths)."""
     vals = (starts, rs_lens, thresholds, q_base, q_start, q_len2d)
-    return {name: torch.from_numpy(np.ascontiguousarray(v, dtype=np.int32))
-            .to(device) for name, v in zip(REPLAY_FIELDS, vals)}
+    return {name: spans.upload(np.ascontiguousarray(v, dtype=np.int32),
+                               device)
+            for name, v in zip(REPLAY_FIELDS, vals)}

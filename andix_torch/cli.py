@@ -22,7 +22,7 @@ import sys
 
 import numpy as np
 
-from . import _distributed, fasta, output, pipeline
+from . import _distributed, fasta, output, pipeline, spans
 from .device import DeviceError, resolve_devices
 from .model import CountMatrix, model_average, model_bootstrap
 from .runtime import Context, Model, Progress
@@ -202,7 +202,11 @@ def parse_args(argv: list[str], ctx: Context) -> tuple[list[str], int | None]:
 
 
 def main(argv: list[str] | None = None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
+    with spans.request():
+        return _main(list(sys.argv[1:] if argv is None else argv))
+
+
+def _main(argv: list[str]) -> int:
     ctx = Context()
 
     file_names, early = parse_args(argv, ctx)
@@ -226,11 +230,12 @@ def main(argv: list[str] | None = None) -> int:
             return usage(1)
 
     seqs: list[Seq] = []
-    for file_name in file_names:
-        if ctx.join:
-            seqs.extend(fasta.read_fasta_join(file_name, ctx))
-        else:
-            seqs.extend(fasta.read_fasta(file_name, ctx))
+    with spans.span("fasta.read"):
+        for file_name in file_names:
+            if ctx.join:
+                seqs.extend(fasta.read_fasta_join(file_name, ctx))
+            else:
+                seqs.extend(fasta.read_fasta(file_name, ctx))
 
     n = len(seqs)
     if n < 2:

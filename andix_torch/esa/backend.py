@@ -24,11 +24,11 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..chain import events as chain_events
 from ..chain import segmented
 from ..chain.replay_device import (
@@ -105,38 +105,22 @@ _OUTSIDE_ALPHABET[sorted(plcp.ALPHABET_U8)] = False
 def alphabet_ok(sym: torch.Tensor, n: int) -> bool:
     """Every byte of the first ``n`` symbols (separators count as 0) in
     the block alphabet (``plcp.ALPHABET_U8``): the condition of the wide
-    initial ranks and the sampled-PLCP LCP.  One histogram on the
-    symbols' device."""
+    initial ranks and the sampled-PLCP LCP.  One table lookup on the
+    symbols' device, one flag read back."""
     real = sym[:n]
-    counts = torch.bincount(torch.where(real < SEPARATOR_BASE, real, 0),
-                            minlength=256)
-    return not counts.cpu().numpy()[_OUTSIDE_ALPHABET].any()
+    outside = spans.upload(_OUTSIDE_ALPHABET, sym.device)
+    return not bool(spans.readback(
+        outside[torch.where(real < SEPARATOR_BASE, real, 0)].any()))
 
 
 def host_lcp(padded: np.ndarray, sa: torch.Tensor, threads: int):
     """The LCP by the host's parallel Φ algorithm, on ``sa``'s device."""
-    sa_h = sa.cpu().numpy()
+    sa_h = spans.readback(sa).numpy()
     if native.available():
         lcp = native.lcp_from_sa(padded, sa_h, threads)
     else:  # pragma: no cover - toolchain-less fallback
         lcp = sa_numpy.lcp_array(padded, sa_h).astype(np.int32)
-    return torch.from_numpy(lcp).to(sa.device)
-
-
-def prof(label: str, t0: float, device: torch.device) -> float:
-    """Append a phase time on ``device`` to ANDIX_PROF_FILE (no-op when
-    unset), as one line prefixed with the device, written in one call so
-    the lines of worker threads do not interleave; on a CUDA device the
-    phase is synchronized first."""
-    path = os.environ.get("ANDIX_PROF_FILE")
-    if not path:
-        return t0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t1 = time.time()
-    with open(path, "a") as f:
-        f.write(f"[{device}] {label}: {t1 - t0:.6f}s\n")
-    return time.time()
+    return spans.upload(lcp, sa.device)
 
 
 def text_bytes(sym: torch.Tensor, n: int, n_segments: int) -> torch.Tensor:
@@ -146,7 +130,7 @@ def text_bytes(sym: torch.Tensor, n: int, n_segments: int) -> torch.Tensor:
     ``sequence.normalize``/``catcomp``); checked here."""
     sym = sym[:n]
     text = torch.where(sym < SEPARATOR_BASE, sym, 0).to(torch.uint8)
-    zeros = int((text == 0).sum())
+    zeros = int(spans.readback((text == 0).sum()))
     if zeros != n_segments:
         raise ValueError(f"block text: {zeros} zero bytes for {n_segments} "
                          "separators (a real symbol is 0)")
@@ -220,8 +204,8 @@ def _segid(sa: torch.Tensor, seg_bounds: np.ndarray) -> torch.Tensor:
     (padding lands past the last segment), gathered through the SA."""
     n = sa.shape[0]
     boundary = torch.zeros(n, dtype=torch.int32, device=sa.device)
-    b = torch.as_tensor(seg_bounds[seg_bounds < n].astype(np.int64))
-    boundary[b.to(sa.device)] = 1
+    boundary.index_fill_(0, spans.upload(
+        seg_bounds[seg_bounds < n].astype(np.int64), sa.device), 1)
     segid_text = torch.cumsum(boundary, 0, dtype=torch.int32)
     return segid_text[sa.long()]
 
@@ -232,8 +216,8 @@ def _query_slots(isa: torch.Tensor, q_start: np.ndarray, q_off: np.ndarray,
     slots read text position 0)."""
     dev = isa.device
     g = len(q_off) - 1
-    q_off_d = torch.from_numpy(q_off.astype(np.int64)).to(dev)
-    q_start_d = torch.from_numpy(q_start[:g].astype(np.int64)).to(dev)
+    q_off_d = spans.upload(q_off.astype(np.int64), dev)
+    q_start_d = spans.upload(q_start[:g].astype(np.int64), dev)
     v = torch.arange(qb, dtype=torch.int64, device=dev)
     lane = torch.searchsorted(q_off_d[1:], v, right=True).clamp(max=g - 1)
     text = torch.where(v < q_off_d[-1], q_start_d[lane] + v - q_off_d[lane],
@@ -267,50 +251,59 @@ class TorchBackend:
         TPU cap of 14 rows is not kept); the host Φ LCP after an overflow
         or without the device LCP."""
         dev = self.device
-        t0 = time.time()
-        padded_n = bucket(layout.n)
-        nseg = len(layout.genome_ids)
-        padded = pad_symbols(layout.sym, padded_n)
-        sym = torch.from_numpy(padded).to(dev)
-        text = text_bytes(sym, layout.n, nseg)
-        t0 = prof(f"H2D text ({padded_n} padded symbols)", t0, dev)
+        with spans.span("joint.upload", dev) as up:
+            padded_n = bucket(layout.n)
+            nseg = len(layout.genome_ids)
+            with spans.span("joint.text"):
+                padded = pad_symbols(layout.sym, padded_n)
+            sym = spans.upload(padded, dev)
+            text = text_bytes(sym, layout.n, nseg)
+            up.set(padded=padded_n)
 
-        budget = level_budget(padded_n, self.budget)
-        use_device_lcp = padded_n <= DEVICE_LCP_MAX and budget >= 6
-        # the packed keys need separators within the 10-bit clamp
-        packed = nseg <= 700
-        wide = packed and alphabet_ok(sym, layout.n)
-        mode = "hybrid" if wide else "levels"
+        lcp_span = spans.NULL
 
         def sa_done(lev_count, L):
-            nonlocal t0
-            t0 = prof(f"SA doubling ({lev_count} levels, buffer {L})", t0,
-                      dev)
+            nonlocal lcp_span
+            sa_span.set(levels=lev_count, buffer=L)
+            sa_span.end()
+            lcp_span = spans.span("joint.lcp", dev, kind=spans.HOST_LCP)
 
-        sa, lcp, ovf, may_ovf = doubling.sa_lcp_device(
-            sym, packed=packed, max_levels=budget, want_lcp=use_device_lcp,
-            lcp_mode=mode, base_width=doubling.wide_base_width(nseg, wide),
-            on_sa=sa_done)
+        with spans.span("joint.sa", dev) as sa_span:
+            budget = level_budget(padded_n, self.budget)
+            use_device_lcp = padded_n <= DEVICE_LCP_MAX and budget >= 6
+            # the packed keys need separators within the 10-bit clamp
+            packed = nseg <= 700
+            wide = packed and alphabet_ok(sym, layout.n)
+            mode = "hybrid" if wide else "levels"
+            sa, lcp, ovf, may_ovf = doubling.sa_lcp_device(
+                sym, packed=packed, max_levels=budget,
+                want_lcp=use_device_lcp, lcp_mode=mode,
+                base_width=doubling.wide_base_width(nseg, wide),
+                on_sa=sa_done)
         del sym
+        lcp_span.set(hybrid=int(wide))
         if not use_device_lcp:
             lcp = None
-        elif may_ovf and bool(ovf):
+        elif may_ovf and bool(spans.readback(ovf)):
             lcp = None
-            t0 = prof(f"LCP {mode}: level overflow", t0, dev)
+            lcp_span.set(kind=spans.LCP_OVERFLOW)
+            lcp_span.end()
+            lcp_span = spans.span("joint.lcp", dev, kind=spans.HOST_LCP)
         else:
-            t0 = prof(f"LCP {mode}", t0, dev)
+            lcp_span.set(kind=spans.LCP)
         if lcp is None:
             lcp = host_lcp(padded, sa, self.threads)
-            t0 = prof("host LCP round trip", t0, dev)
+        lcp_span.end()
         del padded
 
-        genomes, q_off, blob, q_start, q_len, q_base = _query_lanes(layout)
-        segid = _segid(sa, layout.seg_start[1:])
-        isa = matchstats.inverse_sa_device(sa)
-        qb = bucket(max(int(q_off[-1]), 1))
-        tq = _query_slots(isa, q_start, q_off, qb)
-        rm = rmq.build(lcp)
-        prof("block tables (segid+isa+tq+rmq)", t0, dev)
+        with spans.span("joint.tables", dev):
+            genomes, q_off, blob, q_start, q_len, q_base = _query_lanes(
+                layout)
+            segid = _segid(sa, layout.seg_start[1:])
+            isa = matchstats.inverse_sa_device(sa)
+            qb = bucket(max(int(q_off[-1]), 1))
+            tq = _query_slots(isa, q_start, q_off, qb)
+            rm = rmq.build(lcp)
         return BlockContext(
             layout=layout, q_genomes=genomes, q_off=q_off, query_blob=blob,
             sa=sa, lcp=lcp, segid=segid, isa=isa, tq=tq, rm=rm, text=text,
@@ -381,18 +374,15 @@ class TorchBackend:
         replay = replay or os.environ.get("ANDIX_REPLAY", "events")
         tables = self._group_tables(ctx, subject_genomes, subjects)
         segs, starts = tables[:2]
-        t0 = time.time()
-        mlun, ps = group_subject_tables(ctx.sa, ctx.lcp, ctx.segid, ctx.tq,
-                                        segs, starts)
-        t0 = prof(f"subject tables ({len(segs)} subj)", t0, dev)
+        with spans.span("joint.subject_tables", dev, subjects=len(segs)):
+            mlun, ps = group_subject_tables(ctx.sa, ctx.lcp, ctx.segid,
+                                            ctx.tq, segs, starts)
         counts_h = None
         if replay == "events":
-            counts_h, t0 = self._events_counts(ctx, subject_genomes,
-                                               subjects, model_kind, tables,
-                                               mlun, ps, t0)
+            counts_h = self._events_counts(ctx, subject_genomes, subjects,
+                                           model_kind, tables, mlun, ps)
         if counts_h is None:
-            counts_h = self._loop_counts(ctx, model_kind, tables, mlun, ps,
-                                         t0)
+            counts_h = self._loop_counts(ctx, model_kind, tables, mlun, ps)
         del mlun, ps
 
         out: dict[int, dict[int, CountMatrix]] = {}
@@ -407,11 +397,11 @@ class TorchBackend:
         return out
 
     def _events_counts(self, ctx, subject_genomes, subjects, model_kind,
-                       tables, mlun, ps, t0):
+                       tables, mlun, ps):
         """[Sg, Gp, 16] counts from the anchor events (the segmented walk
         at K > 1, else or after it fails the unsegmented walk) and the
-        host count, or None after the unsegmented walk's event overflow;
-        and the phase clock."""
+        host count, or None after the unsegmented walk's event
+        overflow."""
         dev = self.device
         _, starts, rs_lens, thresholds, q_len2d = tables
         sg, gp = q_len2d.shape
@@ -420,75 +410,72 @@ class TorchBackend:
                                   str(max(1 << 16, qb // 2))))
 
         def walk(arr, chunk_iters, maxev):
-            lanes = {name: torch.from_numpy(arr[name]).to(dev)
-                     for name in LANE_FIELDS}
-            return fetch_walk(chain_walk_flat(ctx.isa, ctx.rm, ctx.text,
-                                              mlun, ps, lanes, chunk_iters,
-                                              maxev, ecap, CHASE, UNROLL))
-
-        def prof_msg(msg):
-            nonlocal t0
-            t0 = prof(msg, t0, dev)
+            with spans.span("walk.dispatch"):
+                lanes = {name: spans.upload(arr[name], dev)
+                         for name in LANE_FIELDS}
+                return fetch_walk(chain_walk_flat(
+                    ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes, chunk_iters,
+                    maxev, ecap, CHASE, UNROLL))
 
         seg_k = self.chain_segments(ctx)
-        res = None
-        if seg_k > 1:
-            res = segmented.segmented_group_anchors(
-                walk, sg, gp, qb, starts, rs_lens, thresholds,
-                ctx.q_base_h, ctx.q_start_h, q_len2d, seg_k, ecap,
-                prof_msg if os.environ.get("ANDIX_PROF_FILE") else None,
-            )
-        if res is None:
-            # K = 1, or the segments did not converge or overflowed: the
-            # unsegmented walk, every event into one buffer
-            res, t0 = self._unsegmented_events(ctx, tables, mlun, ps, ecap,
-                                               t0)
-        if res is None:
-            t0 = prof(f"event buffer of {ecap} overflowed: to the "
-                      "count-in-loop replay", t0, dev)
-            return None, t0
+        with spans.span("joint.walk", dev) as sp:
+            res = None
+            if seg_k > 1:
+                res = segmented.segmented_group_anchors(
+                    walk, sg, gp, qb, starts, rs_lens, thresholds,
+                    ctx.q_base_h, ctx.q_start_h, q_len2d, seg_k, ecap)
+                if res is not None:
+                    sp.set(kind=spans.WALK_SEGMENTED, events=len(res[1]))
+            if res is None:
+                # K = 1, or the segments did not converge or overflowed:
+                # the unsegmented walk, every event into one buffer
+                res = self._unsegmented_events(ctx, tables, mlun, ps, ecap,
+                                               sp)
+            if res is None:
+                sp.set(kind=spans.WALK_OVERFLOW, cap=ecap)
+                return None
         lanes, ev_q, ev_s, ev_len = res
         q_off_pad = np.full(gp + 1, ctx.q_off[-1], dtype=np.int64)
         q_off_pad[: len(ctx.q_off)] = ctx.q_off
-        counts_h = chain_events.group_counts_from_events(
-            lanes, ev_q, ev_s, ev_len, sg, gp,
-            [subjects[genome].rs for genome in subject_genomes],
-            thresholds, ctx.query_blob, q_off_pad, model_kind, self.threads,
-        )
-        t0 = prof(f"host count from {ev_q.shape[0]} events", t0, dev)
-        return counts_h, t0
+        with spans.span("count", dev, events=ev_q.shape[0]):
+            return chain_events.group_counts_from_events(
+                lanes, ev_q, ev_s, ev_len, sg, gp,
+                [subjects[genome].rs for genome in subject_genomes],
+                thresholds, ctx.query_blob, q_off_pad, model_kind,
+                self.threads,
+            )
 
-    def _unsegmented_events(self, ctx, tables, mlun, ps, ecap, t0):
+    def _unsegmented_events(self, ctx, tables, mlun, ps, ecap, sp):
         """The group's unsegmented walk (``chain_anchors_device``): its
         (lanes, q, s, len) event arrays, or None when its one buffer of
-        ``ecap`` events overflowed; and the phase clock."""
+        ``ecap`` events overflowed; its counts go to the walk's span
+        ``sp``."""
         _, starts, rs_lens, thresholds, q_len2d = tables
         out = chain_anchors_device(
             ctx.isa, ctx.rm, ctx.text, mlun, ps, starts, rs_lens, thresholds,
             ctx.q_base_h, ctx.q_start_h, q_len2d, ecap, CHASE, UNROLL)
         ev_cnt, ovf, iters = out[4:]
-        cnt, ovf_h, iters_h = (int(x) for x in torch.stack(
-            [x.to(mlun.device, torch.int32) for x in (ev_cnt, ovf, iters)]
-        ).cpu())
+        cnt, ovf_h, iters_h = (int(x) for x in spans.readback(torch.stack(
+            [x.to(mlun.device, torch.int32) for x in (ev_cnt, ovf, iters)])))
         if ovf_h:
-            return None, t0
-        ev = torch.stack([x[:cnt] for x in out[:4]]).cpu().numpy()
-        t0 = prof(f"anchor chain dispatch ({q_len2d.shape[0]} subj, "
-                  f"{iters_h} loop iters, {cnt} events)", t0, self.device)
-        return tuple(ev), t0
+            return None
+        ev = spans.readback(torch.stack([x[:cnt] for x in out[:4]])).numpy()
+        sp.set(kind=spans.WALK_UNSEGMENTED, subjects=q_len2d.shape[0],
+               loop_iters=iters_h, events=cnt)
+        return tuple(ev)
 
-    def _loop_counts(self, ctx, model_kind, tables, mlun, ps, t0):
+    def _loop_counts(self, ctx, model_kind, tables, mlun, ps):
         """[Sg, Gp, 16] counts from the count-in-loop replay on the
         device (exact equal counts for LogDet and ANI, as
         backend_jax.py:998)."""
         _, starts, rs_lens, thresholds, q_len2d = tables
-        lanes = replay_lanes(starts, rs_lens, thresholds, ctx.q_base_h,
-                             ctx.q_start_h, q_len2d, self.device)
-        counts, tally = replay_rows(
-            ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes,
-            model_kind in (Model.LOGDET, Model.ANI), CHASE)
-        counts_h = counts.cpu().numpy().astype(np.int64)
-        if os.environ.get("ANDIX_PROF_FILE"):
-            prof(f"count-in-loop replay ({q_len2d.shape[0]} subj, "
-                 f"{int(tally[..., 0].max())} probe steps)", t0, self.device)
-        return counts_h
+        with spans.span("joint.walk", self.device, kind=spans.WALK_REPLAY,
+                        subjects=q_len2d.shape[0]) as sp:
+            lanes = replay_lanes(starts, rs_lens, thresholds, ctx.q_base_h,
+                                 ctx.q_start_h, q_len2d, self.device)
+            counts, tally = replay_rows(
+                ctx.isa, ctx.rm, ctx.text, mlun, ps, lanes,
+                model_kind in (Model.LOGDET, Model.ANI), CHASE)
+            if sp:
+                sp.set(probe_steps=tally[..., 0].max())
+            return spans.readback(counts).numpy().astype(np.int64)

@@ -58,7 +58,7 @@ from typing import Callable
 
 import torch
 
-from .. import kernels
+from .. import kernels, spans
 from . import plcp
 
 BASE_WIDTH = 4  # initial prefix width of the clamped packed key
@@ -102,7 +102,7 @@ def _heads_and_tied(sorted_keys: torch.Tensor, order: torch.Tensor):
     changed[1:] = sorted_keys[1:] != sorted_keys[:-1]
     iota = torch.arange(n, dtype=torch.int32, device=order.device)
     head, _ = _fill_forward(changed, iota)
-    tied = int(_tied_mask(~changed).sum())
+    tied = int(spans.readback(_tied_mask(~changed).sum()))
     rank = torch.empty(n, dtype=torch.int32, device=order.device)
     rank[order] = head
     return rank, tied
@@ -507,7 +507,7 @@ class Kernels:
         if plan[1]:
             self.scatter(dead, m, rank)
             clock.mark("scatter")
-        return int(tied)
+        return int(spans.readback(tied))
 
     @contextmanager
     def round(self, kind: str, entries: int):
@@ -834,7 +834,7 @@ def sa_lcp_device(sym: torch.Tensor, packed: bool = False,
     sa, levels, lev_count, ovf = sa_loop(sym, packed, L, base)
     if on_sa is not None:
         on_sa(lev_count, L)
-    ovf_d = torch.tensor(ovf, device=dev)
+    ovf_d = torch.full((), ovf, dtype=torch.bool, device=dev)
     if not want_lcp:
         lcp = torch.zeros(0, dtype=torch.int32, device=dev)
     elif ovf:

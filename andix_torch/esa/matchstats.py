@@ -29,7 +29,7 @@ def match_stats_device(sa: torch.Tensor, lcp: torch.Tensor,
                                           reverse=True)
     del flag, sa_rel, vals_down
 
-    neg1 = torch.tensor(-1, dtype=torch.int32, device=sa.device)
+    neg1 = sa.new_full((), -1)
     u = torch.where(k_up >= 1, suf_up, neg1)
     d = torch.where(k_dn >= 1, suf_dn, neg1)
     del suf_up, suf_dn

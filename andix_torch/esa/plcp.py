@@ -53,7 +53,7 @@ import ctypes
 
 import torch
 
-from .. import kernels
+from .. import kernels, spans
 
 # block-text alphabet (joint.py + sequence.normalize): real symbols
 _CODES = ((65, 1), (67, 2), (71, 3), (84, 4), (33, 5), (35, 6), (59, 7))
@@ -190,8 +190,8 @@ def _check(sym, sa, rows, device_type):
 
 def _row_table(rows, device) -> torch.Tensor:
     """int64 [L] addresses of the level rows, on ``device``."""
-    return torch.tensor([r.data_ptr() for r in rows],
-                        dtype=torch.int64).to(device)
+    return spans.upload(torch.tensor([r.data_ptr() for r in rows],
+                                     dtype=torch.int64), device)
 
 
 def plcp_lcp_hybrid_plain(sym: torch.Tensor, sa: torch.Tensor,
@@ -215,7 +215,8 @@ def plcp_lcp_hybrid_plain(sym: torch.Tensor, sa: torch.Tensor,
     alive_s = phi[::16] >= 0
     a_s = phi[::16].clamp(min=0)
     h = _walk(levels, lev_cnt, base_width, a_s[alive_s], i_s[alive_s],
-              torch.zeros(int(alive_s.sum()), dtype=torch.int32, device=dev))
+              torch.zeros(int(spans.readback(alive_s.sum())),
+                          dtype=torch.int32, device=dev))
     s_alive, left_s = _ladder(w16, levels, lev_cnt, base_width,
                               a_s[alive_s], i_s[alive_s], h)
     S = torch.zeros(ns, dtype=torch.int32, device=dev)
@@ -229,7 +230,7 @@ def plcp_lcp_hybrid_plain(sym: torch.Tensor, sa: torch.Tensor,
     b_f = (iota + lo).clamp(max=n - 1)
     m1 = _word_m(w16[a_f], w16[b_f])
     survivor = alive_f & (m1 == 16)
-    n_surv = int(survivor.sum())
+    n_surv = int(spans.readback(survivor.sum()))
     rel, left_f = _ladder(w16, levels, lev_cnt, base_width, a_f[survivor],
                           b_f[survivor],
                           torch.full((n_surv,), 16, dtype=torch.int32,

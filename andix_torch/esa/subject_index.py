@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import spans
 from .joint import SEPARATOR_BASE
 
 PAD_BASE = 1 << 20  # device_text / pad_symbols padding threshold
@@ -227,7 +228,7 @@ def query_codes_np(query: np.ndarray) -> np.ndarray:
 
 def device_order_codes(sym: torch.Tensor) -> torch.Tensor:
     """int32 symbols -> int32 order codes, on the symbols' device."""
-    lut = torch.from_numpy(_LUT).to(sym.device)
+    lut = spans.upload(_LUT, sym.device)
     return torch.where(
         sym >= PAD_BASE,
         PAD_CODE,
@@ -295,7 +296,7 @@ def build_cache(codes: torch.Tensor, n_real: int, k: int) -> torch.Tensor:
     del hist
     cache = torch.empty(nk + 1, dtype=torch.int32, device=dev)
     cache[:nk] = cum[0: 2 * nk - 1: 2]
-    cache[nk] = n_real
+    cache[nk:].fill_(n_real)
     return cache
 
 

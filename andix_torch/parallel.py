@@ -19,7 +19,7 @@ from typing import Callable
 import numpy as np
 import torch.distributed as dist
 
-from . import _distributed, kernels, native
+from . import _distributed, kernels, native, spans
 from .model import CountMatrix
 
 
@@ -32,18 +32,23 @@ def round_robin_blocks(n_subjects: int, n_devices: int) -> list[list[int]]:
     ]
 
 
-def run_workers(jobs: list[Callable[[], None]]) -> list[float]:
+def run_workers(jobs: list[Callable[[], None]],
+                devices: list | None = None) -> list[float]:
     """Run each job on a thread of its own and wait for every one.  Each
     job's exception is kept; after the join the first is raised, with the
     others, when there are any, as its cause.  Returns each job's wall
-    seconds."""
+    seconds.  Each job runs in a ``worker`` span on its device
+    (``devices[k]``) under the caller's open span."""
     walls = [0.0] * len(jobs)
     errors: list[BaseException | None] = [None] * len(jobs)
+    parent = spans.current()
 
     def run(k):
         t0 = time.perf_counter()
         try:
-            jobs[k]()
+            with spans.span("worker", devices[k] if devices else None,
+                            parent=parent):
+                jobs[k]()
         except BaseException as e:  # raised after the join
             errors[k] = e
         walls[k] = time.perf_counter() - t0

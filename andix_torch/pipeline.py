@@ -37,7 +37,7 @@ import sys
 import numpy as np
 import torch
 
-from . import _distributed, parallel
+from . import _distributed, parallel, spans
 from .device import memory_budget, ranks_on
 from .esa import joint
 from .model import CountMatrix
@@ -318,7 +318,8 @@ def calculate_matrix(
     n = len(seqs)
     devices = list(devices)
     world = _distributed.world_size()
-    subjects = [subject_init(s, ctx.anchor_p_value) for s in seqs]
+    with spans.span("subjects"):
+        subjects = [subject_init(s, ctx.anchor_p_value) for s in seqs]
     shares, budget = worker_memory(devices)
     block_syms, max_query_syms = device_plan(block_syms, subjects, budget)
 
@@ -450,7 +451,8 @@ def _process_sharded(todo, seqs, subjects, ctx: Context, M, progress, ckpt,
             for w, (d, s, r) in enumerate(zip(devices, shares, rows_of)) if r]
     parallel.load_libraries(devices)
     walls = parallel.run_workers([functools.partial(work, d, s, r)
-                                  for _, d, s, r in jobs])
+                                  for _, d, s, r in jobs],
+                                 [d for _, d, _, _ in jobs])
     LAST_BALANCE[:] = [
         f"worker {w} on {d}: rows {r[0]}..{r[-1]}, {wall:.3f} s"
         for (w, d, _, r), wall in zip(jobs, walls)

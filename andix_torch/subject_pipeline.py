@@ -46,18 +46,17 @@ from __future__ import annotations
 import functools
 import os
 import threading
-import time
 
 import numpy as np
 import torch
 
-from . import _distributed, parallel
+from . import _distributed, parallel, spans
 from .chain import events as chain_events
 from .chain import evpack, segmented
 from .chain.replay_device import fetch_walk
 from .chain.walk_sx import SX_LANE_FIELDS, chain_walk_flat_sx
 from .esa import backend, joint, subject_index
-from .esa.backend import bucket, pad_symbols, prof
+from .esa.backend import bucket, pad_symbols
 from .model import CountMatrix
 from .runtime import Context
 
@@ -148,7 +147,10 @@ def _build_group_index(group, subjects, cache_k: int, device, budget: int,
     for k, i in enumerate(group):
         layout = joint.build_block({i: subjects[i].rs}, {})
         nreal[k] = layout.n
-        sym = torch.from_numpy(pad_symbols(layout.sym, lp)).to(device)
+        with spans.span("sx.text"):
+            padded = pad_symbols(layout.sym, lp)
+        sym = spans.upload(padded, device)
+        del padded
         sa, lcp, ovf, words, cache = subject_index.build_subject_index(
             sym, layout.n, cache_k, backend.alphabet_ok(sym, layout.n),
             max_levels)
@@ -158,13 +160,14 @@ def _build_group_index(group, subjects, cache_k: int, device, budget: int,
         cache2[k] = cache
         ovf_flags.append(ovf)
         del sym, sa, lcp, words, cache
-    overflowed = torch.stack(ovf_flags).cpu().numpy()
+    overflowed = spans.readback(torch.stack(ovf_flags)).numpy()
     for k in np.nonzero(overflowed)[0]:
         # pathologically repetitive subject: SA exact, LCP invalid
         layout = joint.build_block({group[k]: subjects[group[k]].rs}, {})
-        salcp[k, 1] = backend.host_lcp(pad_symbols(layout.sym, lp),
-                                       salcp[k, 0], threads)
-    return (salcp, sw, cache2, torch.from_numpy(nreal).to(device),
+        with spans.span("sx.text"):
+            padded = pad_symbols(layout.sym, lp)
+        salcp[k, 1] = backend.host_lcp(padded, salcp[k, 0], threads)
+    return (salcp, sw, cache2, spans.upload(nreal, device),
             int(overflowed.sum()))
 
 
@@ -259,9 +262,8 @@ def process_subject_index(todo: list[int], seqs, subjects, ctx: Context, M,
 
     def work(w: int) -> None:
         device = devices[w]
-        t0 = time.time()
-        qw = _pack_query_words(raw_blob, q_off, n, device)
-        prof("sx: query words H2D", t0, device)
+        with spans.span("sx.query_words", device):
+            qw = _pack_query_words(raw_blob, q_off, n, device)
         for group in groups[w::n_workers]:
             events = _process_group(group, qw, subjects, ctx, M, meter, ckpt,
                                     cache_k, ecap, n, gp, q_len_row,
@@ -277,7 +279,8 @@ def process_subject_index(todo: list[int], seqs, subjects, ctx: Context, M,
 
     parallel.load_libraries(devices[:n_workers])
     walls = parallel.run_workers([functools.partial(work, w)
-                                  for w in range(n_workers)])
+                                  for w in range(n_workers)],
+                                 devices[:n_workers])
     LAST_BALANCE.extend(f"worker {w} on {devices[w]}: wall {wall:.3f} s"
                         for w, wall in enumerate(walls))
     return sorted(leftovers)
@@ -307,7 +310,7 @@ def _pack_query_words(raw_blob, q_off, n, device) -> torch.Tensor:
     blob2 = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
     pad = (-len(blob2)) % 16 + 16
     blob2 = np.concatenate([blob2, np.zeros(pad, np.uint8)])
-    return subject_index.pack_words_u8(torch.from_numpy(blob2).to(device))
+    return subject_index.pack_words_u8(spans.upload(blob2, device))
 
 
 def _fetch_events(ev4, cnt: int, lb: int, ecap: int) -> np.ndarray:
@@ -320,13 +323,14 @@ def _fetch_events(ev4, cnt: int, lb: int, ecap: int) -> np.ndarray:
     Either order gives every lane its events in chain order."""
     if os.environ.get("ANDIX_EVPACK", "1") != "0":
         k = min(bucket(max(cnt, 1), 4096), ecap)
-        flat = evpack.encode_events_flat(*ev4, cnt, k, lb).cpu().numpy()
+        flat = spans.readback(
+            evpack.encode_events_flat(*ev4, cnt, k, lb)).numpy()
         packed, esc, counts, n_esc, esc_ovf = evpack.split_encoded(flat, k,
                                                                    lb)
         if not esc_ovf:
             return np.stack(evpack.decode_events(packed, esc, counts,
                                                  int(n_esc), cnt))
-    return torch.stack([x[:cnt] for x in ev4]).cpu().numpy()
+    return spans.readback(torch.stack([x[:cnt] for x in ev4])).numpy()
 
 
 class _Stalled(Exception):
@@ -340,13 +344,12 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
     """Build, walk and count one subject group and publish its rows;
     returns its event count, or None when the group goes back to the joint
     schedule."""
-    t0 = time.time()
-    salcp, sw, cache2, nreal, n_host = _build_group_index(
-        group, subjects, cache_k, device,
-        budget - qw.numel() * qw.element_size(), ctx.threads)
+    with spans.span("sx.index", device, subjects=len(group)) as sp:
+        salcp, sw, cache2, nreal, n_host = _build_group_index(
+            group, subjects, cache_k, device,
+            budget - qw.numel() * qw.element_size(), ctx.threads)
+        sp.set(host_lcp=n_host)
     sg = salcp.shape[0]
-    t0 = prof(f"sx: index build ({len(group)} subj, {n_host} host LCP "
-              f"round trips after a level overflow)", t0, device)
 
     rs_lens = np.ones(sg, dtype=np.int32)
     thresholds = np.full(sg, 2**29, dtype=np.int32)
@@ -372,13 +375,16 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
         # between clonal genomes)
         if chunk_iters == idle_cap:
             raise _Stalled
-        # the driver's query start ("qs") is the lane's base in qw symbols
-        lanes = {name: torch.from_numpy(arr["qs" if name == "qwb" else name])
-                 .to(device) for name in SX_LANE_FIELDS}
-        res = fetch_walk(chain_walk_flat_sx(
-            salcp, sw, cache2, nreal, qw, lanes, chunk_iters, maxev,
-            cache_k, ecap_now,
-        ), functools.partial(_fetch_events, ecap=ecap_now))
+        with spans.span("walk.dispatch"):
+            # the driver's query start ("qs") is the lane's base in qw
+            # symbols
+            lanes = {name: spans.upload(arr["qs" if name == "qwb" else name],
+                                        device)
+                     for name in SX_LANE_FIELDS}
+            res = fetch_walk(chain_walk_flat_sx(
+                salcp, sw, cache2, nreal, qw, lanes, chunk_iters, maxev,
+                cache_k, ecap_now,
+            ), functools.partial(_fetch_events, ecap=ecap_now))
         overflowed |= res[4]
         ev, state, fin = res[:3]
         live = arr["pos0"] < arr["seg_end"]
@@ -388,41 +394,36 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
         idle_cap = None if moved else chunk_iters
         return res
 
-    def prof_msg(msg):
-        nonlocal t0
-        t0 = prof("sx: " + msg, t0, device)
-
     ecap_now = ecap
-    for escalation in range(3):
-        overflowed = False
-        idle_cap = None
-        try:
-            res = segmented.segmented_group_anchors(
-                walk, sg, gp, 0, np.zeros(sg, np.int32), rs_lens,
-                thresholds, qw_base_pad, qw_base_pad, q_len2d, seg_k,
-                ecap_now,
-                prof_msg if os.environ.get("ANDIX_PROF_FILE") else None,
-            )
-        except _Stalled:
-            prof_msg("walk stalled at the chunk cap: to the joint schedule")
-            return None
-        if res is not None:
-            break
-        if not overflowed or escalation == 2:
-            # the resolve did not converge (a wider buffer would walk the
-            # same way), or the buffer still overflowed
-            return None
-        ecap_now *= 4
+    with spans.span("sx.walk", device, kind=spans.NO_LINE) as walk_span:
+        for escalation in range(3):
+            overflowed = False
+            idle_cap = None
+            try:
+                res = segmented.segmented_group_anchors(
+                    walk, sg, gp, 0, np.zeros(sg, np.int32), rs_lens,
+                    thresholds, qw_base_pad, qw_base_pad, q_len2d, seg_k,
+                    ecap_now)
+            except _Stalled:
+                walk_span.set(kind=spans.SX_STALLED)
+                return None
+            if res is not None:
+                break
+            if not overflowed or escalation == 2:
+                # the resolve did not converge (a wider buffer would walk
+                # the same way), or the buffer still overflowed
+                return None
+            ecap_now *= 4
+        walk_span.set(kind=spans.SX_WALKED, events=len(res[1]))
     del salcp, sw, cache2
     lanes, ev_q, ev_s, ev_len = res
 
-    t0 = time.time()
     subjects_rs = [subjects[i].rs for i in group] + [None] * (sg - len(group))
-    counts_h = chain_events.group_counts_from_events(
-        lanes, ev_q, ev_s, ev_len, sg, gp, subjects_rs, thresholds,
-        raw_blob, q_off_pad, ctx.model, ctx.threads,
-    )
-    prof(f"sx: host count from {ev_q.shape[0]} events", t0, device)
+    with spans.span("sx.count", device, events=ev_q.shape[0]):
+        counts_h = chain_events.group_counts_from_events(
+            lanes, ev_q, ev_s, ev_len, sg, gp, subjects_rs, thresholds,
+            raw_blob, q_off_pad, ctx.model, ctx.threads,
+        )
 
     for k, i in enumerate(group):
         row = {}

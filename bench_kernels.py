@@ -51,8 +51,8 @@ two times show what pairs that differ inside a warp cost.  ``--what cli``
 (not in ``all``) runs the CLI on the 8 x 5 Mbp family under
 ``ANDIX_INDEX=subject`` and ``joint``, three times each in turns, and
 prints each run's wall with its "sx: index build" or "SA doubling"
-phase (``ANDIX_PROF_FILE``, synchronized; the block's loop is a cold
-call there).  Each kernel is run once before its timed launches.
+phase (``ANDIX_PROF_FILE``, timed by CUDA events; the block's loop is a
+cold call there).  Each kernel is run once before its timed launches.
 ``--split`` also prints the device time of each launch of one PLCP
 call, from torch.profiler.  Prints the card's name and power limit
 first, one line per measurement, and one JSON object last; exits

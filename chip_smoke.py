@@ -1065,7 +1065,7 @@ def _cli_run(paths, index, tmp, label, env=None):
     peak = torch.cuda.max_memory_allocated()
     with open(prof_path) as f:
         phases = [line.strip() for line in f if line.strip()]
-    say(f"{label} (ANDIX_INDEX={index}): wall {wall:.3f} s (phase syncs "
+    say(f"{label} (ANDIX_INDEX={index}): wall {wall:.3f} s (phase spans "
         f"on), exit {code}")
     for p in phases:
         say(f"  phase {p}")
@@ -1870,7 +1870,7 @@ def phase_repeat(tmp, card):
     CLI on the CPU at this size would spend most of the script's time
     limit in the plain flag scans, so the CLI's bytes are held to the
     CPU's on the 8 x 50 kbp copy."""
-    from andix_torch import kernels
+    from andix_torch import kernels, spans
     from andix_torch import subject_pipeline as sp
     from andix_torch.esa import backend, doubling, joint
     from andix_torch.esa.backend import bucket, pad_symbols
@@ -1958,8 +1958,9 @@ def phase_repeat(tmp, card):
         kernels.reset_launches()
         t0 = time.time()
         try:
-            ctx = backend.TorchBackend(device, budget=budget).prepare_block(
-                layout)
+            with spans.request():  # the phase lines of one request
+                ctx = backend.TorchBackend(device,
+                                           budget=budget).prepare_block(layout)
         finally:
             del os.environ["ANDIX_PROF_FILE"]
         with open(prof_path) as f:

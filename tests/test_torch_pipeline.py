@@ -124,7 +124,7 @@ def test_event_overflow_falls_back_to_loop(joint_schedule, monkeypatch):
                                        backend.replay_rows)
 
     def counting(walk, sg, gp, qb, *rest):
-        caps.append(rest[-3:-1])  # seg_k, ecap
+        caps.append(rest[-2:])  # seg_k, ecap
         return orig(walk, sg, gp, qb, *rest)
 
     def unsegmented(*a):

@@ -275,7 +275,7 @@ def driver_calls(monkeypatch):
     walk = segmented.segmented_group_anchors
 
     def recording(fn, sg, gp, qb, *rest):
-        calls["joint" if qb else "sx"].append(rest[-2])
+        calls["joint" if qb else "sx"].append(rest[-1])
         return walk(fn, sg, gp, qb, *rest)
 
     block = pipeline._process_block

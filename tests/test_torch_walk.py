@@ -495,7 +495,7 @@ def spies(monkeypatch):
         return orig_jloop(self, *a, **kw)
 
     def seg(walk, sg, gp, qb, *rest):
-        calls["segmented"].append(rest[-3])  # K
+        calls["segmented"].append(rest[-2])  # K
         return orig_seg(walk, sg, gp, qb, *rest)
 
     def anchors(*a):
