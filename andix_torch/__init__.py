@@ -13,7 +13,11 @@ runtime, esa.joint, esa.sa_numpy, chain.events, chain.segmented,
 chain.replay_py, and the numpy half of esa.subject_index) are verbatim
 copies of ``andix``'s, held equal by the tests.
 
-Two schedules, picked by ``ANDIX_INDEX`` as in ``andix``:
+On a card the CLI reads its FASTA files there (``ingest``: one upload of
+the files' bytes, one kernel launch that parses, normalizes and
+reverse-complements them); files it cannot prove exact, stdin, join mode
+and the CPU backend take ``fasta``'s parser.  Two schedules, picked by
+``ANDIX_INDEX`` as in ``andix``:
 
 * joint (slice 1): CLI -> joint block -> SA/LCP -> matching statistics
   (flag-scan kernel) -> subject tables -> segmented chain walk (walk

@@ -22,7 +22,7 @@ import sys
 
 import numpy as np
 
-from . import _distributed, fasta, output, pipeline, spans
+from . import _distributed, fasta, ingest, output, pipeline, spans
 from .device import DeviceError, resolve_devices
 from .model import CountMatrix, model_average, model_bootstrap
 from .runtime import Context, Model, Progress
@@ -229,13 +229,9 @@ def _main(argv: list[str]) -> int:
         else:
             return usage(1)
 
-    seqs: list[Seq] = []
+    card = ingest.card(ctx)
     with spans.span("fasta.read"):
-        for file_name in file_names:
-            if ctx.join:
-                seqs.extend(fasta.read_fasta_join(file_name, ctx))
-            else:
-                seqs.extend(fasta.read_fasta(file_name, ctx))
+        seqs = ingest.read(file_names, ctx, card)
 
     n = len(seqs)
     if n < 2:

@@ -2,9 +2,10 @@
 the segmented chain walk, host counting (counterpart of
 ``andix/esa/backend_jax.py``'s ``JaxBackend``).
 
-Per block (``prepare_block``): the padded int32 joint text goes to the
-device as it is, and its byte copy (``BlockContext.text``) stays there
-for the walk's lucky checks; suffix array by prefix doubling and the
+Per block (``prepare_block``): the block's uint8 text goes to the device
+(``BlockContext.text``, which stays there for the walk's lucky checks)
+and ``ingest.block_text`` widens it there to the padded int32 symbols;
+suffix array by prefix doubling and the
 adjacent LCP (``doubling.sa_lcp_device``: the sampled-PLCP kernel over a
 capped level buffer, or the level walk), with ``andix``'s retreat to the
 host Φ LCP (``native.lcp_from_sa``) when the levels overflow or do not
@@ -28,7 +29,7 @@ import os
 import numpy as np
 import torch
 
-from .. import spans
+from .. import ingest, spans
 from ..chain import events as chain_events
 from ..chain import segmented
 from ..chain.replay_device import (
@@ -123,20 +124,6 @@ def host_lcp(padded: np.ndarray, sa: torch.Tensor, threads: int):
     return spans.upload(lcp, sa.device)
 
 
-def text_bytes(sym: torch.Tensor, n: int, n_segments: int) -> torch.Tensor:
-    """The block text as uint8 [n]: each real symbol's byte, 0 at every
-    separator.  The walk kernel takes a 0 byte for a unique symbol, so
-    every real symbol must be non-zero (sequences hold ``ACGT!;#`` only,
-    ``sequence.normalize``/``catcomp``); checked here."""
-    sym = sym[:n]
-    text = torch.where(sym < SEPARATOR_BASE, sym, 0).to(torch.uint8)
-    zeros = int(spans.readback((text == 0).sum()))
-    if zeros != n_segments:
-        raise ValueError(f"block text: {zeros} zero bytes for {n_segments} "
-                         "separators (a real symbol is 0)")
-    return text
-
-
 @dataclasses.dataclass
 class BlockContext:
     layout: BlockLayout
@@ -149,7 +136,10 @@ class BlockContext:
     isa: torch.Tensor  # int32[Np]
     tq: torch.Tensor  # int32[QB] SA slots of the query blob (padded)
     rm: rmq.RangeMin
-    text: torch.Tensor  # uint8[n] text bytes, 0 at separators
+    # uint8[n] text bytes, 0 at separators: the walk kernel takes a 0 byte
+    # for a unique symbol, so no real symbol may be 0 (sequences hold
+    # ``ACGT!;#`` only; ``prepare_block`` checks)
+    text: torch.Tensor
     q_start_h: np.ndarray  # int32[Gp] text base per query lane
     q_len_h: np.ndarray  # int32[Gp] (0 = padding lane)
     q_base_h: np.ndarray  # int32[Gp] blob base per query lane
@@ -164,12 +154,11 @@ class BlockContext:
 
         genomes, q_off, blob = _query_lanes(layout)[:3]
         lcp_d = dev(lcp)
-        text = text_bytes(torch.from_numpy(layout.sym), layout.n,
-                          len(layout.genome_ids))
         return cls(
             layout=layout, q_genomes=genomes, q_off=q_off, query_blob=blob,
             sa=dev(sa), lcp=lcp_d, segid=dev(segid), isa=dev(isa),
-            tq=dev(tq), rm=rmq.build(lcp_d), text=text.to(device),
+            tq=dev(tq), rm=rmq.build(lcp_d),
+            text=torch.from_numpy(layout.u8).to(device),
             q_start_h=np.asarray(q_start, np.int32),
             q_len_h=np.asarray(q_len, np.int32),
             q_base_h=np.asarray(q_base, np.int32),
@@ -255,9 +244,15 @@ class TorchBackend:
             padded_n = bucket(layout.n)
             nseg = len(layout.genome_ids)
             with spans.span("joint.text"):
-                padded = pad_symbols(layout.sym, padded_n)
-            sym = spans.upload(padded, dev)
-            text = text_bytes(sym, layout.n, nseg)
+                u8 = torch.from_numpy(layout.u8)
+                ends = layout.seg_start[1:] - 1
+            text = spans.upload(u8, dev)
+            sym, zeros = ingest.block_text(text, spans.upload(ends, dev),
+                                           padded_n)
+            zeros, stray = (int(z) for z in spans.readback(zeros))
+            if stray or zeros != nseg:
+                raise ValueError(f"block text: {zeros} zero bytes for {nseg} "
+                                 "separators (a real symbol is 0)")
             up.set(padded=padded_n)
 
         lcp_span = spans.NULL
@@ -292,9 +287,9 @@ class TorchBackend:
         else:
             lcp_span.set(kind=spans.LCP)
         if lcp is None:
-            lcp = host_lcp(padded, sa, self.threads)
+            lcp = host_lcp(pad_symbols(layout.sym, padded_n), sa,
+                           self.threads)
         lcp_span.end()
-        del padded
 
         with spans.span("joint.tables", dev):
             genomes, q_off, blob, q_start, q_len, q_base = _query_lanes(

@@ -11,7 +11,7 @@ header under ``csrc/`` rebuilds.
 ``cpu_twin()`` builds the kernels' shared bodies (``flag_scan_tile.cuh``,
 ``walk_lane.cuh``, ``walk_sx_lane.cuh``, ``plcp_lane.cuh``,
 ``rmq_tile.cuh``, ``replay_lane.cuh``, ``evpack_lane.cuh``,
-``bootstrap_lane.cuh``, ``doubling_tile.cuh``) with g++ into a small host library, so the
+``bootstrap_lane.cuh``, ``doubling_tile.cuh``, ``ingest_tile.cuh``) with g++ into a small host library, so the
 kernels' logic can be held to the JAX functions on a machine without a
 card (each at the kernel's tile, window or run sizes and at tiny ones).
 
@@ -40,10 +40,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CUDA_SOURCES = ("flag_scan.cu", "chain_walk.cu", "walk_sx.cu", "plcp.cu",
                 "rmq.cu", "replay.cu", "evpack.cu", "bootstrap.cu",
-                "doubling.cu", "sa_sort.cu")
+                "doubling.cu", "sa_sort.cu", "ingest.cu")
 CPU_TWIN_SOURCES = ("flag_scan_cpu.cpp", "walk_cpu.cpp", "walk_sx_cpu.cpp",
                     "plcp_cpu.cpp", "rmq_cpu.cpp", "replay_cpu.cpp",
-                    "evpack_cpu.cpp", "bootstrap_cpu.cpp", "doubling_cpu.cpp")
+                    "evpack_cpu.cpp", "bootstrap_cpu.cpp", "doubling_cpu.cpp",
+                    "ingest_cpu.cpp")
 CUDA_LIB = os.path.join(BUILD_DIR, "libandix_torch_cuda.so")
 CPU_TWIN_LIB = os.path.join(BUILD_DIR, "libandix_torch_walk_cpu.so")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -55,7 +56,8 @@ _NVCC_SOURCE_FLAGS = {"bootstrap.cu": ["-fmad=false"]}
 launches = {"flag_scan": 0, "chain_walk_flat": 0, "chain_walk_flat_sx": 0,
             "plcp_lcp_hybrid": 0, "range_min_build": 0, "replay": 0,
             "evpack_encode": 0, "bootstrap_resample": 0, "sa_keys": 0,
-            "sa_rerank": 0, "sa_pair_scatter": 0}
+            "sa_rerank": 0, "sa_pair_scatter": 0, "ingest": 0,
+            "block_text": 0}
 launches_by_card: dict[int, dict[str, int]] = {}
 
 _cuda_lib = None
@@ -110,6 +112,13 @@ _EVPACK_ARGTYPES = [_P] * 4 + [ctypes.c_int64] * 2 + [_I] * 2 + [_P]
 _SA_KEYS_ARGTYPES = ([_I, _P, _P, _P] + [ctypes.c_int64] * 3
                      + [_I, _P, _P, _P, _I, _I])
 _SA_RERANK_ARGTYPES = [_I, ctypes.c_int64] + [_P] * 11 + [_I, _I, _P]
+# andix_ingest's (ingest.cu): the raw bytes and their count, the record
+# table's rows, the scratch, the kept bytes, the table, the RS buffer and
+# its size; the CUDA entry adds the stream.  andix_block_text's: the text
+# and n, the separator positions and their count, the first padding
+# symbol, the padded length, the symbols and the two counts
+_BLOCK_TEXT_ARGTYPES = ([_P, ctypes.c_int64, _P, _I, _I, ctypes.c_int64]
+                        + [_P] * 2)
 
 
 def reset_launches() -> None:
@@ -266,6 +275,13 @@ def _load_cuda():
     lib.andix_sa_sort.argtypes = ([_P] * 4 + [ctypes.c_int64, _I, _P,
                                               ctypes.c_int64, _P, _P])
     lib.andix_sa_sort.restype = _I
+    lib.andix_ingest_scratch_ints.argtypes = [ctypes.c_int64]
+    lib.andix_ingest_scratch_ints.restype = ctypes.c_int64
+    lib.andix_ingest.argtypes = [_P, ctypes.c_int64, _I, _P, _P, _P, _P,
+                                 ctypes.c_int64, _P]
+    lib.andix_ingest.restype = _I
+    lib.andix_block_text.argtypes = _BLOCK_TEXT_ARGTYPES + [_P]
+    lib.andix_block_text.restype = _I
     lib.andix_set_device.argtypes = [_I]
     lib.andix_set_device.restype = _I
     lib.andix_cuda_error_string.argtypes = [_I]
@@ -333,4 +349,11 @@ def _load_cpu_twin():
     lib.andix_sa_rerank_cpu.restype = _I
     lib.andix_sa_pair_scatter_cpu.argtypes = [_P, ctypes.c_int64, _P, _I]
     lib.andix_sa_pair_scatter_cpu.restype = _I
+    lib.andix_ingest_cpu_tiles.argtypes = [ctypes.c_int64, _I]
+    lib.andix_ingest_cpu_tiles.restype = ctypes.c_int64
+    lib.andix_ingest_cpu.argtypes = [_P, ctypes.c_int64, _I, _P, _I, _P, _P,
+                                     _P, ctypes.c_int64, _P]
+    lib.andix_ingest_cpu.restype = _I
+    lib.andix_block_text_cpu.argtypes = _BLOCK_TEXT_ARGTYPES
+    lib.andix_block_text_cpu.restype = _I
     return lib

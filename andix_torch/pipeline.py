@@ -37,13 +37,12 @@ import sys
 import numpy as np
 import torch
 
-from . import _distributed, parallel, spans
+from . import _distributed, ingest, parallel, spans
 from .device import memory_budget, ranks_on
-from .esa import joint
 from .model import CountMatrix
 from .output import ProgressMeter
 from .runtime import Context
-from .sequence import Seq, Subject, subject_init
+from .sequence import Seq, Subject
 
 
 def make_blocks(
@@ -267,7 +266,7 @@ def _process_block(
     for chunk_idx, qchunk in enumerate(qchunks):
         subject_rs = {i: subjects[i].rs for i in block}
         query_seqs = {j: seqs[j].data for j in qchunk}
-        layout = joint.build_block(subject_rs, query_seqs)
+        layout = ingest.block_layout(subject_rs, query_seqs, backend.device)
         bctx = backend.prepare_block(layout)
         # in-block queries ride along in every chunk (they live inside the
         # RS strings); publish them only once
@@ -319,7 +318,7 @@ def calculate_matrix(
     devices = list(devices)
     world = _distributed.world_size()
     with spans.span("subjects"):
-        subjects = [subject_init(s, ctx.anchor_p_value) for s in seqs]
+        subjects = [ingest.subject(s, ctx.anchor_p_value) for s in seqs]
     shares, budget = worker_memory(devices)
     block_syms, max_query_syms = device_plan(block_syms, subjects, budget)
 

@@ -97,9 +97,11 @@ LABELS = {
     "sx.count": (lambda a: f"sx: host count from {a['events']} events",),
 }
 # host spans: every file's parse and normalize, the subjects' set-up, the
-# padded texts, one segmented-driver dispatch, one worker thread
+# padded texts, one segmented-driver dispatch, one worker thread; and the
+# FASTA read's counters of files read on the card and on the host
 NAMES = frozenset(LABELS) | {"fasta.read", "subjects", "joint.text",
-                             "sx.text", "walk.dispatch", "worker"}
+                             "sx.text", "walk.dispatch", "worker",
+                             "ingest.device_files", "ingest.host_files"}
 
 REQUESTS: collections.deque = collections.deque(maxlen=64)
 
@@ -281,13 +283,15 @@ def upload(a, device) -> torch.Tensor:
     return out
 
 
-def readback(t: torch.Tensor) -> torch.Tensor:
-    """``t`` on the host; counts the host nanoseconds the call blocks.
+def readback(t: torch.Tensor, out: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """``t`` on the host (copied into ``out``, a host tensor of its shape
+    and type, where given); counts the host nanoseconds the call blocks.
     Every blocking read of a device tensor goes through here."""
     if _req is None:
-        return t.cpu()
+        return t.cpu() if out is None else out.copy_(t)
     t0 = _clock()
-    out = t.cpu()
+    out = t.cpu() if out is None else out.copy_(t)
     count("wait_ns", _clock() - t0)
     return out
 

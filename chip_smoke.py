@@ -29,7 +29,13 @@ line each; any failed phase raises and the script exits non-zero:
    full round's pairs scattered by the kernel and by index_put_; the
    range-min build over the 8 x 1 and 8 x 5 Mbp joint LCPs, every array
    it makes; print the times, the walks' counts and each kernel's byte
-   bound from the data of its run;
+   bound from the data of its run; then the genome texts
+   (``phase_ingest``): the 8 x 5 Mbp family in 70-column FASTA read on
+   the card (``ingest.read_records``) against ``fasta.read_fasta`` and
+   ``subject_init`` (names, sequences, RS, G+C, thresholds), the ingest
+   kernels against the plain version (kept bytes, record table, RS) and
+   ``block_text`` against ``pad_symbols`` on the 100,663,296-symbol joint
+   block, each timed beside its plain version and its byte bound;
 4. one 1 Mbp subject's index built (hybrid: wide ranks, sampled-PLCP
    LCP) on the card and on the CPU: SA, LCP, words and cache equal; the
    build's levels and peak bytes per padded index symbol at 1 Mbp and
@@ -125,8 +131,10 @@ torch passes the two kernels replace).  The packed
 encode's are 16 B a live event read and its output written
 (``evpack_bound``), at the 8 x 5 Mbp run's largest dispatch.  The
 resampler's bound is the larger of its bytes and its float64 operations
-(``boot_bound``).  No single PyTorch call computes any of the ten
-functions (``torch.binomial`` draws one binomial an element, so a
+(``boot_bound``).  The ingest's are the raw bytes read and the kept
+bytes, record table and RS written; ``block_text``'s the text read and 4
+B a padded symbol written (``ingest_bound``).  No single PyTorch call
+computes any of the twelve functions (``torch.binomial`` draws one binomial an element, so a
 resample that keeps each pair's total would take 15 calls), so
 ``library_ms`` is null.
 """
@@ -846,6 +854,108 @@ def rmq_bound(rm) -> tuple[int, float]:
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def _fasta_70(name: str, data: np.ndarray) -> bytes:
+    """One record in lines of 70 bases, as genome files come."""
+    body = b"\n".join(data[k: k + 70].tobytes()
+                      for k in range(0, len(data), 70))
+    return f">{name} synthetic strain {name}\n".encode() + body + b"\n"
+
+
+def ingest_bound(raw_bytes: int, kept: int, records: int, rs_bytes: int,
+                 text: int, padded: int) -> tuple[int, float, int, float]:
+    """Bytes the ingest (raw read; kept bytes, table and RS written) and
+    the block text (text read, 4 B a padded symbol written) must move, and
+    their times at the card's memory rate."""
+    ib = raw_bytes + kept + 24 * (records + 1) + rs_bytes
+    bb = text + 4 * padded
+    return (ib, ib / HBM_BYTES_PER_S * 1e3, bb, bb / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_ingest(dev, tmp):
+    """The 8 x 5 Mbp family's FASTA through the ingest on the card and on
+    the host, and the joint block's text widened by ``block_text``; the
+    kernels against their plain versions on the card, exactly, and timed.
+    Returns the (ms, plain ms, max error, bound ms) of both kernels."""
+    from andix_torch import fasta, ingest
+    from andix_torch.esa import joint
+    from andix_torch.esa.backend import bucket, pad_symbols
+    from andix_torch.runtime import Context
+    from andix_torch.sequence import subject_init
+
+    fam = make_family(8, 5_000_000)
+    paths = []
+    for name, data in fam:
+        path = os.path.join(tmp, f"{name}.fa")
+        with open(path, "wb") as f:
+            f.write(_fasta_70(name, data))
+        paths.append(path)
+    t0 = time.perf_counter()
+    host = [s for p in paths for s in fasta.read_fasta(p, Context())]
+    host_s = time.perf_counter() - t0
+    subjects = [subject_init(s, 0.025) for s in host]
+    walls = []
+    for _ in range(2):  # the first call pins its host buffers
+        t0 = time.perf_counter()
+        got = ingest.read_records(paths, dev)
+        walls.append(time.perf_counter() - t0)
+    recs = [r for k in sorted(got) for r in got[k]]
+    if sorted(got) != list(range(8)) or len(recs) != 8:
+        raise AssertionError(f"ingest: files taken {sorted(got)}")
+    for s, sub, r in zip(host, subjects, recs):
+        theirs = ingest.subject(ingest.IngestSeq(r.data, r.name, r.rs, r.gc),
+                                0.025)
+        if s.name != r.name or not np.array_equal(s.data, r.data) or \
+                not np.array_equal(sub.rs, theirs.rs) or \
+                (sub.gc, sub.threshold) != (theirs.gc, theirs.threshold):
+            raise AssertionError(f"ingest: record {s.name} differs")
+    say(f"ingest 8x5Mbp: read on the card {walls[1]:.4f} s, the first call "
+        f"{walls[0]:.4f} s (files read whole, one upload, the kernels, the RS "
+        f"back) against the host read {host_s:.4f} s; names, sequences, RS, "
+        f"G+C, thresholds equal")
+
+    blob = np.frombuffer(b"".join(
+        open(p, "rb").read() + b"\n" for p in paths), np.uint8)
+    raw = torch.from_numpy(blob.copy()).to(dev)
+    cap = 64
+    seq, rec, rs = ingest.scan(raw, cap)
+    want = ingest.scan_plain(raw, cap)
+    k, nh = int(want[1][cap, 2]), int(want[1][cap, 0])
+    total = 2 * k + 2 * nh
+    err = max_abs_err([seq[:k], rec, rs[:total]],
+                      [want[0][:k], want[1], want[2][:total]])
+    if err:
+        raise AssertionError(f"ingest kernel != plain: {err}")
+    ms = cuda_ms(lambda: ingest.scan(raw, cap), 20)
+    plain_ms = cuda_ms(lambda: ingest.scan_plain(raw, cap), 3)
+
+    layout = joint.build_block({i: s.rs for i, s in enumerate(subjects)},
+                               {})
+    padded = bucket(layout.n)
+    text = torch.from_numpy(layout.u8).to(dev)
+    ends = torch.from_numpy(layout.seg_start[1:] - 1).to(dev)
+    sym, counts = ingest.block_text(text, ends, padded)
+    ref = torch.from_numpy(pad_symbols(layout.sym, padded)).to(dev)
+    plain = ingest.block_text_plain(text, ends, padded)
+    bt_err = max_abs_err([sym, sym], [ref, plain[0]])
+    if bt_err or counts.tolist() != [8, 0]:
+        raise AssertionError(f"block_text != pad_symbols: {bt_err}, "
+                             f"counts {counts.tolist()}")
+    bt_ms = cuda_ms(lambda: ingest.block_text(text, ends, padded), 20)
+    bt_plain = cuda_ms(lambda: ingest.block_text_plain(text, ends, padded),
+                       3)
+    ib, ib_ms, bb, bb_ms = ingest_bound(blob.size, k, cap, total, layout.n,
+                                        padded)
+    say(f"ingest kernels ({blob.size} raw bytes, {nh} records, {k} kept, "
+        f"{total} RS bytes): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{ib_ms:.4f} ms ({ib} B) = {100 * ib_ms / ms:.2f}%; equal")
+    say(f"block_text ({layout.n} -> {padded} symbols): {bt_ms:.4f} ms, plain "
+        f"{bt_plain:.4f} ms, bound {bb_ms:.4f} ms ({bb} B) = "
+        f"{100 * bb_ms / bt_ms:.2f}%; == pad_symbols")
+    del raw, seq, rec, rs, want, text, ends, sym, ref, plain
+    torch.cuda.empty_cache()
+    return (ms, plain_ms, err, ib_ms), (bt_ms, bt_plain, bt_err, bb_ms)
+
+
 def phase_rmq(lcps):
     """The range-min kernel against its plain build over the 8 x 1 and
     8 x 5 Mbp joint LCPs (``phase_plcp``'s), every array exactly; both
@@ -1128,7 +1238,8 @@ def phase_main_path(tmp, card):
     if min(launches["flag_scan"], launches["chain_walk_flat"],
            launches["plcp_lcp_hybrid"], launches["range_min_build"],
            launches["sa_keys"], launches["sa_rerank"],
-           launches["sa_pair_scatter"]) <= 0 \
+           launches["sa_pair_scatter"], launches["ingest"],
+           launches["block_text"]) <= 0 \
             or launches["chain_walk_flat_sx"]:
         raise AssertionError(f"the joint path's kernels did not launch: "
                              f"{launches}")
@@ -2193,6 +2304,8 @@ def main() -> int:
     rmq_t = phase_rmq(lcps)
     del lcps
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ingest_t, text_t = phase_ingest(dev, tmp)
     phase_index_build(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli_parity(tmp)
@@ -2284,6 +2397,16 @@ def main() -> int:
          "ms": sa_t["scatter"]["ms"], "plain_ms": sa_t["scatter"]["plain_ms"],
          "bound_ms": sa_t["scatter"]["bound_ms"], "bound_by": "bytes",
          "library_ms": sa_t["scatter"]["plain_ms"]},
+        {"name": "ingest", "route": "cuda",
+         "source": "andix_torch/csrc/ingest.cu", "replaces": None,
+         "launches": launches["ingest"], "max_abs_err": ingest_t[2],
+         "ms": ingest_t[0], "plain_ms": ingest_t[1],
+         "bound_ms": ingest_t[3], "bound_by": "bytes", "library_ms": None},
+        {"name": "block_text", "route": "cuda",
+         "source": "andix_torch/csrc/ingest.cu", "replaces": None,
+         "launches": launches["block_text"], "max_abs_err": text_t[2],
+         "ms": text_t[0], "plain_ms": text_t[1], "bound_ms": text_t[3],
+         "bound_by": "bytes", "library_ms": None},
     ]}
     say(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps(table))

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from andix_torch import bootstrap, kernels, subject_pipeline
+from andix_torch import bootstrap, ingest, kernels, subject_pipeline
 from andix_torch.chain import evpack
 from andix_torch.chain import replay_device as rd
 from andix_torch.chain import segmented, walk_sx
@@ -1085,3 +1085,178 @@ def test_doubling_launches_on_the_workers_card(cuda):
     for d in range(count):
         card = kernels.launches_by_card[d]
         assert card["sa_rerank"] == 2 * rounds and card["sa_keys"] > 0
+
+
+def _wrapped(name: str, data: np.ndarray, width: int = 70) -> bytes:
+    """One FASTA record, its sequence in lines of ``width`` bytes."""
+    pad = (-len(data)) % width
+    body = np.concatenate([data, np.full(pad, 10, np.uint8)]).reshape(
+        -1, width)
+    lines = np.concatenate([body, np.full((len(body), 1), 10, np.uint8)],
+                           axis=1).ravel()[: len(data) + -(-len(data) // width)]
+    return f">{name} strain {name}\n".encode() + lines.tobytes()
+
+
+def _raw_family(n_genomes, length, seed):
+    rng = np.random.default_rng(seed)
+    base = NUCL[rng.integers(0, 4, length)]
+    recs = []
+    for k in range(n_genomes):
+        hit = rng.random(length) < 0.01 * k
+        data = np.where(hit, NUCL[rng.integers(0, 4, length)], base)
+        recs.append(_wrapped(f"g{k}", data))
+    return b"".join(recs)
+
+
+@pytest.mark.parametrize("kind", ["bytes", "tile_edges", "family_8x5m"])
+def test_ingest_kernel_equals_plain(cuda, kind):
+    """The ingest's two kernels (scan and RS) against the plain version:
+    random bytes of every class (headers, refused bytes, empty names),
+    records whose edges fall on tile and chunk edges, and 8 x 5 Mbp in
+    70-column lines: the kept bytes, the record table and its totals, and
+    the RS bytes, exactly."""
+    rng = np.random.default_rng(18)
+    if kind == "bytes":
+        alphabet = np.frombuffer(b"ACGTacgtNn-*> \t\r\n\n1!\x00\xff",
+                                 np.uint8)
+        x = alphabet[rng.integers(0, len(alphabet), 300_007)]
+        x[0] = ord(">")
+    elif kind == "tile_edges":
+        recs = [_wrapped(f"r{k}", NUCL[rng.integers(0, 4, n)], w)
+                for k, (n, w) in enumerate([(16384 - 9, 61), (1, 1),
+                                            (16384 * 3, 16384), (63, 64),
+                                            (64, 63), (15, 16), (16, 15),
+                                            (70_001, 70)])]
+        x = np.frombuffer(b"".join(recs) + b"\n", np.uint8)
+    else:
+        x = np.frombuffer(_raw_family(8, 5_000_000, 18), np.uint8)
+    raw = torch.from_numpy(x.copy())
+    cap = 64
+    before = kernels.launches["ingest"]
+    seq, rec, rs = ingest.scan(raw.to(cuda), cap)
+    assert kernels.launches["ingest"] == before + 1
+    want = ingest.scan_plain(raw, cap)
+    nh, k = int(want[1][cap, 0]), int(want[1][cap, 2])
+    assert torch.equal(rec.cpu(), want[1])
+    assert torch.equal(seq[:k].cpu(), want[0][:k])
+    if nh <= cap:
+        total = 2 * k + 2 * nh
+        assert torch.equal(rs[:total].cpu(), want[2][:total])
+
+
+def test_ingest_read_on_the_card_equals_the_host(cuda, tmp_path):
+    """``ingest.read`` on the card (files read whole into pinned memory,
+    one upload) against ``fasta.read_fasta`` and ``subject_init``: names,
+    sequences, RS, G+C and thresholds, and a refused file (a digit) read
+    by the host with its flag."""
+    import contextlib
+    import io
+
+    from andix_torch import fasta
+    from andix_torch.runtime import Context
+
+    rng = np.random.default_rng(19)
+    paths = []
+    for k in range(4):
+        body = _wrapped(f"c{k}", NUCL[rng.integers(0, 4, 50_000 + k)])
+        if k == 1:
+            body += b">c1b lower case\nacgtnNRYacgt\n"
+        if k == 2:
+            body += b">c2b\nACGT1\n"
+        p = tmp_path / f"f{k}.fa"
+        p.write_bytes(body)
+        paths.append(str(p))
+    ctx_h, ctx_d = Context(), Context()
+    err_h, err_d = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err_h):
+        want = [s for p in paths for s in fasta.read_fasta(p, ctx_h)]
+    with contextlib.redirect_stderr(err_d):
+        got = ingest.read(paths, ctx_d, cuda)
+    assert err_h.getvalue() == err_d.getvalue()
+    assert ctx_h.non_acgt == ctx_d.non_acgt
+    assert [type(s) is ingest.IngestSeq for s in got] == [
+        True, True, True, False, False, True]
+    for a, b in zip(want, got):
+        assert a.name == b.name and np.array_equal(a.data, b.data)
+        sa, sb = subject_init(a, 0.025), ingest.subject(b, 0.025)
+        assert np.array_equal(sa.rs, sb.rs)
+        assert (sa.gc, sa.threshold) == (sb.gc, sb.threshold)
+
+
+@pytest.mark.parametrize("case", ["random", "one_segment", "unpadded",
+                                  "joint_8x5m"])
+def test_block_text_kernel_equals_pad_symbols(cuda, case):
+    """``block_text`` on the card against ``pad_symbols(layout.sym,
+    padded_n)``: random layouts with query-only segments, one segment,
+    ``padded_n == n``, and the 8 x 5 Mbp joint block (100,663,296 padded
+    symbols); its counts read every separator's 0 and no other."""
+    from andix_torch.esa.backend import bucket
+    from andix_torch.sequence import catcomp
+
+    rng = np.random.default_rng(20)
+    if case == "joint_8x5m":
+        sizes, queries = [5_000_000] * 8, 0
+    elif case == "one_segment":
+        sizes, queries = [70_001], 0
+    else:
+        sizes, queries = [int(x) for x in rng.integers(1, 40_000, 5)], 3
+    rs = {k: catcomp(NUCL[rng.integers(0, 4, n)])
+          for k, n in enumerate(sizes)}
+    qs = {len(sizes) + k: NUCL[rng.integers(0, 4, 9_999 + k)]
+          for k in range(queries)}
+    layout = joint.build_block(rs, qs)
+    padded = layout.n if case == "unpadded" else bucket(layout.n)
+    ends = torch.from_numpy(layout.seg_start[1:] - 1)
+    before = kernels.launches["block_text"]
+    sym, counts = ingest.block_text(torch.from_numpy(layout.u8).to(cuda),
+                                    ends.to(cuda), padded)
+    assert kernels.launches["block_text"] == before + 1
+    assert np.array_equal(sym.cpu().numpy(), pad_symbols(layout.sym, padded))
+    assert counts.tolist() == [len(ends), 0]
+    plain = ingest.block_text_plain(torch.from_numpy(layout.u8), ends,
+                                    padded)
+    assert torch.equal(sym.cpu(), plain[0])
+
+
+def test_block_text_kernel_counts_a_stray_zero(cuda):
+    text = torch.tensor([65, 0, 67, 0, 71, 0], dtype=torch.uint8)
+    ends = torch.tensor([3, 5], dtype=torch.int64)
+    sym, counts = ingest.block_text(text.to(cuda), ends.to(cuda), 64)
+    assert counts.tolist() == [3, 1]
+    assert counts.tolist() == ingest.block_text_plain(text, ends,
+                                                      64)[1].tolist()
+
+
+def test_cli_reads_on_the_card_and_prints_the_host_bytes(cuda, tmp_path,
+                                                         capfd):
+    """The CLI on a small family, ``--backend cuda`` against ``--backend
+    cpu``: stdout, stderr and exit code byte-equal; on the card every file
+    is read by the ingest kernel (one launch) and the block text widened by
+    ``block_text``; a refused file (a '!' in a sequence) goes to the host
+    on both and changes nothing else."""
+    from andix_torch import cli
+
+    rng = np.random.default_rng(21)
+    base = NUCL[rng.integers(0, 4, 20_000)]
+    paths = []
+    for k in range(4):
+        data = np.where(rng.random(20_000) < 0.02 * k,
+                        NUCL[rng.integers(0, 4, 20_000)], base)
+        body = _wrapped(f"g{k}", data)
+        if k == 3:
+            body = body[:-30] + b"n" + body[-30:]
+        p = tmp_path / f"g{k}.fa"
+        p.write_bytes(body)
+        paths.append(str(p))
+    bang = tmp_path / "bang.fa"
+    bang.write_bytes(b">bang\n" + base[:5000].tobytes() + b"!ACGT\n")
+    for files in (paths, paths + [str(bang)]):
+        kernels.reset_launches()
+        code_c = cli.main(["--backend", "cuda", "--progress=never"] + files)
+        out_c = capfd.readouterr()
+        launches = dict(kernels.launches)
+        code_p = cli.main(["--backend", "cpu", "--progress=never"] + files)
+        out_p = capfd.readouterr()
+        assert (code_c, out_c.out, out_c.err) == (code_p, out_p.out,
+                                                  out_p.err)
+        assert launches["ingest"] == 1 and launches["block_text"] >= 1

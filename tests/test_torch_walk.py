@@ -26,7 +26,7 @@ from andix_torch import pipeline as tpipeline
 from andix_torch.chain import replay_device as rd
 from andix_torch.chain import segmented
 from andix_torch.esa import joint as tjoint
-from andix_torch.esa.backend import BlockContext, TorchBackend, text_bytes
+from andix_torch.esa.backend import BlockContext, TorchBackend
 from andix_torch.runtime import Context as TContext
 from andix_torch.sequence import Seq as TSeq
 
@@ -312,13 +312,13 @@ def test_text_bytes_hold_no_zero_symbol():
     seqs = _family(2, 300, [0.1], seed=2)
     subjects = [subject_init(s, Context().anchor_p_value) for s in seqs]
     layout = tjoint.build_block({0: subjects[0].rs}, {1: seqs[1].data})
-    text = text_bytes(torch.from_numpy(layout.sym), layout.n, 2)
+    backend = TorchBackend(torch.device("cpu"))
+    text = backend.prepare_block(layout).text
     assert (text.numpy() == layout.u8).all()
     assert (text.numpy()[layout.seg_start[1:] - 1] == 0).all()
-    bad = layout.sym.copy()
-    bad[5] = 0
-    with pytest.raises(ValueError):
-        text_bytes(torch.from_numpy(bad), layout.n, 2)
+    layout.u8[5] = 0
+    with pytest.raises(ValueError, match="a real symbol is 0"):
+        backend.prepare_block(layout)
 
 
 def _scalar_walk_reads(ctx, mlun, ps, lanes, chase, diag_win):
