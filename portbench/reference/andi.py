@@ -14,7 +14,9 @@ What it computes, for every ordered pair (subject i, query j), i != j:
   ``RS_i`` gives it, and that suffix's position.  They come from one
   suffix array of all subject strings, each ending in a separator of its
   own (prefix doubling with ``torch.sort``), its adjacent LCP array (from
-  the doubling's rank levels) and a sparse table of range minima;
+  the doubling's rank levels) and a sparse table of range minima.  They
+  are made for a block of subjects at a time, whose pairs are walked and
+  counted before the next block's are made;
 * andi's anchor walk (``dist_anchor``, ``src/process.c:141-214``): lucky
   anchors on the last anchor's diagonal, unique anchors of at least the
   threshold, the advance by the attempted match's length plus one.  The
@@ -105,6 +107,8 @@ class JointText:
         self.qoff = self.off + np.array(self.lens, dtype=np.int64) + 1
         host = np.concatenate(parts)
         self.n = len(host)
+        if self.n >= 1 << 31:  # ranks, LCPs and statistics are int32
+            raise ValueError("the reference takes under 2^31 positions")
         self.code = torch.from_numpy(host.astype(np.int64)).to(device)
         self._suffix_array()
         self._lcp()
@@ -200,52 +204,67 @@ class JointText:
 # --- match statistics --------------------------------------------------------
 
 
-def match_statistics(jt: JointText, i: int, forward_only: bool = False):
-    """(length, unique, subject position) against ``RS_i`` at every query
-    position of every genome, in ``jt.qoff`` order (genome g's block is
-    ``[sum(lens[:g]), sum(lens[:g + 1]))``)."""
+def match_statistics(jt: JointText, i: int, forward_only: bool, out):
+    """Writes into ``out`` (length int32, unique bool, subject position
+    int32) against ``RS_i`` at every query position of every genome, in
+    ``jt.qoff`` order (genome g's block is ``[sum(lens[:g]),
+    sum(lens[:g + 1]))``).
+
+    At a query suffix of rank r, the suffixes of ``RS_i`` nearest to it in
+    the suffix array are the inside ranks just below and just above r; the
+    match is the longer of the two LCPs with them, and it is unique when
+    the next inside suffix beyond shares less of it.  The inside ranks are
+    sorted once and searched a query genome at a time, so nothing is kept
+    over the whole text but the index."""
     n, dev = jt.n, jt.device
     lo = int(jt.qoff[i]) if forward_only else int(jt.off[i])
     hi = int(jt.off[i]) + 2 * jt.lens[i] + 1
-    sa = jt.sa
-    inside = (sa >= lo) & (sa < hi)
-    idx = torch.arange(n, device=dev)
-    prev = torch.cummax(torch.where(inside, idx, -1), 0).values
-    prev = torch.cat([torch.full((1,), -1, device=dev), prev[:-1]])
-    nxt = torch.where(inside, idx, n).flip(0).cummin(0).values.flip(0)
-    nxt = torch.cat([nxt[1:], torch.full((1,), n, device=dev)])
-    up = torch.where(prev >= 0, jt.range_min((prev + 1).clamp(max=n - 1),
-                                             idx), 0)
-    dn = torch.where(nxt < n, jt.range_min((idx + 1).clamp(max=n - 1),
-                                           nxt.clamp(max=n - 1)), 0)
-    del inside
-    qpos = torch.cat([torch.arange(int(jt.qoff[g]), int(jt.qoff[g]) + ln,
-                                   device=dev)
-                      for g, ln in enumerate(jt.lens)])
-    r = jt.isa[qpos]
-    del qpos
-    a, b = prev[r], nxt[r]
-    u, d = up[r], dn[r]
-    length = torch.maximum(u, d)
-    a_c, b_c = a.clamp(min=0), b.clamp(max=n - 1)
-    unique = torch.where(u > d, up[a_c] < u,
-                         torch.where(d > u, dn[b_c] < d, False))
-    pos = torch.where(u > d, sa[a_c], sa[b_c]) - int(jt.off[i])
-    return length, unique, pos
+    inside = torch.sort(jt.isa[lo:hi]).values
+    m = inside.numel()
+    # adj[k]: the LCP of the inside suffixes of ranks inside[k - 1] and
+    # inside[k]; 0 before the first and past the last
+    adj = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+    adj[1:m] = jt.range_min(inside[:-1] + 1, inside[1:])
+    length, unique, pos = out
+    start = 0
+    for g, ln in enumerate(jt.lens):
+        r = jt.isa[int(jt.qoff[g]):int(jt.qoff[g]) + ln]
+        kp = torch.searchsorted(inside, r) - 1  # the inside rank below r
+        kn = torch.searchsorted(inside, r, right=True)  # and above it
+        has_a, has_b = kp >= 0, kn < m
+        a = torch.where(has_a, inside[kp.clamp(min=0)], 0)
+        b = torch.where(has_b, inside[kn.clamp(max=m - 1)], n - 1)
+        u = torch.where(has_a, jt.range_min(torch.where(has_a, a + 1, r), r),
+                        0)
+        r1 = (r + 1).clamp(max=n - 1)
+        d = torch.where(has_b, jt.range_min(r1, torch.where(has_b, b, r1)),
+                        0)
+        up_a = adj[kp.clamp(min=0)]
+        dn_b = adj[(kn + 1).clamp(max=m)]
+        unique[start:start + ln] = torch.where(
+            u > d, up_a < u, torch.where(d > u, dn_b < d, False))
+        length[start:start + ln] = torch.maximum(u, d)
+        pos[start:start + ln] = (torch.where(u > d, jt.sa[a], jt.sa[b])
+                                 - int(jt.off[i]))
+        start += ln
 
 
 # --- the anchor walk ---------------------------------------------------------
 
 
 class _Pairs:
-    """The ordered pairs' fixed data, one entry a pair."""
+    """The fixed data of the ordered pairs whose subject is one of
+    ``subjects``, one entry a pair; ``subj`` is the subject's place in
+    ``subjects``, which is its statistics' place in the block."""
 
-    def __init__(self, jt: JointText, thresholds: list[int]):
+    def __init__(self, jt: JointText, thresholds: list[int],
+                 subjects: range):
         n = len(jt.lens)
-        self.pairs = [(i, j) for i in range(n) for j in range(n) if i != j]
+        self.pairs = [(i, j) for i in subjects for j in range(n) if i != j]
         dev = jt.device
         qstart = np.concatenate([[0], np.cumsum(jt.lens)[:-1]])
-        cols = list(zip(*[(i, jt.lens[j], thresholds[i], 2 * jt.lens[i] + 1,
+        cols = list(zip(*[(i - subjects.start, jt.lens[j], thresholds[i],
+                           2 * jt.lens[i] + 1,
                            jt.lens[i], int(jt.off[i]), int(jt.qoff[j]),
                            int(qstart[j]))
                           for i, j in self.pairs]))
@@ -287,7 +306,8 @@ def _walk(jt, pp: _Pairs, ms, seg: int):
                                       pp.rs_off[pr[li]] + try_s[li])
         hit = lucky & (lucky_len >= pp.thr[pr])
         at = pp.subj[pr] * total_q + pp.ms_off[pr] + p
-        m_len, m_uniq, m_pos = ms_len[at], ms_uniq[at], ms_pos[at]
+        m_len, m_uniq = ms_len[at].long(), ms_uniq[at]
+        m_pos = ms_pos[at].long()
         length = torch.where(hit, lucky_len, m_len)
         s = torch.where(hit, try_s, m_pos)
         found = hit | (m_uniq & (m_len >= pp.thr[pr]))
@@ -419,35 +439,52 @@ def _counts(jt, pp: _Pairs, pair, q, s, length) -> torch.Tensor:
 
 
 class Reference:
-    """andi's ``-m JC`` counts for a family of genomes (ACGT bytes)."""
+    """andi's ``-m JC`` counts for a family of genomes (ACGT bytes).
+
+    The pairs are walked a block of subjects at a time, each block's match
+    statistics freed before the next: ``block`` subjects, or by default as
+    many as ``STATS_BYTES`` of statistics hold (9 B a query position a
+    subject).  The counts do not depend on the block."""
+
+    STATS_BYTES = 8 << 30
 
     def __init__(self, genomes: list[np.ndarray], p_value: float = 0.025,
-                 device: str | torch.device = "cpu", segment: int = 4096):
+                 device: str | torch.device = "cpu", segment: int = 4096,
+                 block: int | None = None):
         self.genomes = [np.asarray(g, dtype=np.uint8) for g in genomes]
         self.thresholds = [min_anchor_length(p_value, gc_content(g),
                                              2 * len(g) + 1)
                            for g in self.genomes]
         self.jt = JointText(self.genomes, torch.device(device))
-        self.pp = _Pairs(self.jt, self.thresholds)
         self.segment = segment
+        total_q = sum(self.jt.lens)
+        self.block = block or min(len(genomes), max(
+            1, self.STATS_BYTES // (9 * total_q)))
 
     def counts(self, forward_only: bool = False):
         """(counts [n, n, 16] int64, seq_len [n, n] int64), with the
         diagonal's sentinel (9 AtoA of 9, ``src/dist_hack.h:62``)."""
-        jt, pp, n = self.jt, self.pp, len(self.genomes)
-        stats = [match_statistics(jt, i, forward_only) for i in range(n)]
-        ms = (torch.cat([st[0] for st in stats]),
-              torch.cat([st[1] for st in stats]),
-              torch.cat([st[2] for st in stats]), sum(jt.lens))
-        del stats
-        walk = _walk(jt, pp, ms, self.segment)
-        del ms
-        per_pair = _counts(jt, pp, *walk).cpu().numpy()
+        jt, n, dev = self.jt, len(self.genomes), self.jt.device
+        total_q = sum(jt.lens)
         counts = np.zeros((n, n, 16), dtype=np.int64)
         seq_len = np.zeros((n, n), dtype=np.int64)
-        for k, (i, j) in enumerate(pp.pairs):
-            counts[i, j] = per_pair[k]
-            seq_len[i, j] = len(self.genomes[j])
+        for first in range(0, n, self.block):
+            subjects = range(first, min(first + self.block, n))
+            pp = _Pairs(jt, self.thresholds, subjects)
+            size = len(subjects) * total_q
+            ms = (torch.empty(size, dtype=torch.int32, device=dev),
+                  torch.empty(size, dtype=torch.bool, device=dev),
+                  torch.empty(size, dtype=torch.int32, device=dev))
+            for k, i in enumerate(subjects):
+                match_statistics(jt, i, forward_only, tuple(
+                    t[k * total_q:(k + 1) * total_q] for t in ms))
+            walk = _walk(jt, pp, (*ms, total_q), self.segment)
+            del ms
+            per_pair = _counts(jt, pp, *walk).cpu().numpy()
+            del walk
+            for k, (i, j) in enumerate(pp.pairs):
+                counts[i, j] = per_pair[k]
+                seq_len[i, j] = len(self.genomes[j])
         for i in range(n):
             counts[i, i, 0] = 9
             seq_len[i, i] = 9

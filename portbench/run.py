@@ -238,6 +238,13 @@ def schedule_ok(schedule: str, launches: dict, cuda: bool) -> bool:
     return launches[walk] > 0 and launches[other] == 0
 
 
+def card_peaks(by_card: list[int]) -> dict:
+    """The window's peak allocated bytes: each card's, and the fullest
+    card's (0 without a card)."""
+    return {"peak_bytes_by_card": by_card,
+            "peak_bytes": max(by_card, default=0)}
+
+
 def card_info() -> dict:
     info = {"name": torch.cuda.get_device_name(0)}
     try:
@@ -282,8 +289,9 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
                   "card": card_info() if cuda else None}
         cold = prog.matrix(paths, model)
         record["cold_matrix_s"] = cold.seconds
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
+        cards = torch.cuda.device_count() if cuda else 0
+        for d in range(cards):
+            torch.cuda.reset_peak_memory_stats(d)
         t_window = time.perf_counter()
         record["setup_s"] = time.time() - T_START
         marks.append(("cold matrix", record["setup_s"]))
@@ -312,9 +320,13 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
             finally:
                 sampler.stop()
             record["profile"] = trace.read_profile(prof, starts,
-                                                   sampler.samples)
+                                                   sampler.samples, cards)
             del prof
-            busy_s = record["profile"]["busy_s"]
+            # the device's busy seconds averaged over the cards; the
+            # profile's ``busy_s`` stays their union
+            by_card = record["profile"]["busy_s_by_card"]
+            busy_s = (sum(by_card[d] for d in range(cards)) / cards if cards
+                      else record["profile"]["busy_s"])
             window_s = record["profile"]["wall_s"]
             prof_file = os.path.join(tmp, "phases.txt")
             record["phase_matrices"] = []
@@ -330,8 +342,9 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
                         {"wall_s": mat.seconds,
                          "phases": phases.parse(f.read())})
                 window.append(mat)
-        peak = torch.cuda.max_memory_allocated() if cuda else 0
-        record["peak_bytes"] = peak
+        record.update(card_peaks([torch.cuda.max_memory_allocated(d)
+                                  for d in range(cards)]))
+        peak = record["peak_bytes"]
         record["window_walls"] = [m.seconds for m in window]
         attempted = len(window)
         failed = sum(1 for m in window if m.code != 0 or m.out != cold.out)
@@ -372,7 +385,7 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
             return 3
         device = {"platform": "gpu" if cuda else "cpu",
                   "kind": record["card"]["name"] if cuda else "cpu",
-                  "count": torch.cuda.device_count() if cuda else 0,
+                  "count": cards,
                   "memory_peak_bytes": int(peak)}
         result = {"correct": bool(correct), "attempted": attempted,
                   "failed": failed, "metrics": values, "device": device}

@@ -20,9 +20,9 @@ if ROOT not in sys.path:
 TINY = {"genomes": 4, "length": 20000}
 
 
-def make_tiny_root(path: str) -> str:
+def make_tiny_root(path: str, size: dict = TINY) -> str:
     """BENCHMARK.json and portbench/ copied to ``path`` with each
-    configuration cut to ``TINY``, beside a link to the port."""
+    configuration cut to ``size``, beside a link to the port."""
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), path)
     shutil.copytree(os.path.join(ROOT, "portbench"),
                     os.path.join(path, "portbench"),
@@ -33,7 +33,7 @@ def make_tiny_root(path: str) -> str:
     for entry in bench["configs"]:
         cfg_path = os.path.join(path, entry["file"])
         cfg = json.load(open(cfg_path))
-        cfg.update(TINY)
+        cfg.update(size)
         json.dump(cfg, open(cfg_path, "w"))
     return path
 

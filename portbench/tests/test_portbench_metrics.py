@@ -33,11 +33,12 @@ def record(text, walls):
             "hbm_bytes_per_s": HBM_BYTES_PER_S}
 
 
-def ev(name, start, end, device=True):
+def ev(name, start, end, device=True, card=0):
     return types.SimpleNamespace(
         name=name, time_range=types.SimpleNamespace(start=start, end=end),
         device_type=(torch.autograd.DeviceType.CUDA if device
-                     else torch.autograd.DeviceType.CPU))
+                     else torch.autograd.DeviceType.CPU),
+        device_index=card if device else -1)
 
 
 def canned_profile():
@@ -80,6 +81,40 @@ def test_read_profile_busy_gaps_and_labels():
     assert idle["output.py:print_distances"] == pytest.approx(300e-6)
     assert p["kernels"]["void flag_scan_kernel<false>(FsArgs)"] == \
         pytest.approx((200e-6, 1))
+
+
+def test_read_profile_busy_by_card():
+    """Two cards' overlapping intervals: each card its own union, and
+    ``busy_s`` the union over both; a visible card with none reads 0."""
+    events = [
+        ev(trace.MARK, 0, 1000, device=False),
+        ev("walk", 100, 500, card=0),
+        ev("sort", 400, 600, card=0),  # overlaps card 0's walk
+        ev("walk", 300, 900, card=1),  # overlaps both on card 0
+        ev("copy", 950, 1200, card=1),  # past the span
+    ]
+    p = trace.read_profile(types.SimpleNamespace(events=lambda: events),
+                           [0.0], [], cards=3)
+    assert p["busy_s_by_card"] == pytest.approx(
+        {0: 500e-6, 1: 650e-6, 2: 0.0})
+    assert p["busy_s"] == pytest.approx(850e-6)
+
+
+def test_one_card_busy_by_card_is_the_union():
+    p = canned_profile()
+    assert p["busy_s_by_card"] == {0: p["busy_s"]}
+
+
+def test_peak_is_the_fullest_cards():
+    from portbench.run import card_peaks
+
+    one = card_peaks([3 * 2**30 + 12345])
+    assert one["peak_bytes"] == one["peak_bytes_by_card"][0]
+    assert metric("peak_device_GiB")(one) == (3 * 2**30 + 12345) / 2**30
+    four = card_peaks([2**30, 5 * 2**30, 0, 2**31])
+    assert four["peak_bytes"] == 5 * 2**30
+    assert metric("peak_device_GiB")(four) == pytest.approx(5.0)
+    assert card_peaks([]) == {"peak_bytes_by_card": [], "peak_bytes": 0}
 
 
 def metric(name):

@@ -7,7 +7,7 @@ import io
 import numpy as np
 import pytest
 import torch
-from portbench_tiny import tiny_root  # noqa: F401  (the root on the path)
+from portbench_tiny import TINY, make_tiny_root  # (the root on the path)
 
 from portbench import family
 from portbench.reference import andi
@@ -19,6 +19,7 @@ FAMILIES = [
     (5, 30_000, [0.02, 0.2, 0.3, 0.0], 2, 128),  # g4 == g0, a pair at 0.5
     (4, 50_000, [0.005, 0.01, 0.12], 3, 4096),
     (3, 5_000, [0.3, 0.25], 4, 16),
+    (4, 20_000, [0.0, 0.0005, 0.002], 5, 64),  # near-clonal, g1 == g0
 ]
 
 
@@ -49,6 +50,21 @@ def test_reference_counts_are_the_ports(n, length, rates, seed, segment):
     assert np.array_equal(seq_len, want_len)
 
 
+@pytest.mark.parametrize("family_index", [1, 4])
+def test_reference_counts_do_not_depend_on_the_block(family_index):
+    """A block of one subject and all subjects in one block give the same
+    counts, on both strands and on the forward strand alone."""
+    n, length, rates, seed, segment = FAMILIES[family_index]
+    genomes = [d for _, d in family.make_family(n, length, rates, seed)]
+    one = andi.Reference(genomes, 0.025, "cpu", segment, block=1)
+    every = andi.Reference(genomes, 0.025, "cpu", segment, block=n)
+    assert one.block == 1 and every.block == n
+    for forward_only in (False, True):
+        c1, l1 = one.counts(forward_only)
+        cn, ln = every.counts(forward_only)
+        assert np.array_equal(c1, cn) and np.array_equal(l1, ln)
+
+
 def test_reference_phylip_is_the_cli_output(tmp_path):
     from andix_torch import cli
 
@@ -64,17 +80,23 @@ def test_reference_phylip_is_the_cli_output(tmp_path):
     assert code == want_code == 0
 
 
+# the outbreak mix's SNPs need more genomes and sites than TINY holds
+CONTROL_SIZES = {"bact8x5m.outbreak": {"genomes": 8, "length": 50_000}}
+
+
 @pytest.mark.parametrize("cell", ["bact8x5m.divergent",
-                                  "bact10x5m.divergent"])
-def test_control_is_not_correct(tiny_root, cell):
+                                  "bact10x5m.divergent",
+                                  "bact8x5m.outbreak"])
+def test_control_is_not_correct(tmp_path, cell):
     """The control, the reference's estimate in float32, fails
     ``distance_gap`` at each cell's test size, on three seeds, with its
     counts exact; the forward strand alone and half the pairs fail the
     counts."""
     from portbench import control, run
 
+    root = make_tiny_root(str(tmp_path), CONTROL_SIZES.get(cell, TINY))
     for seed in (2**31 + 1, 2**31 + 2, 2**31 + 3):
-        r = control.readings(cell, seed, "cpu", root=tiny_root)
+        r = control.readings(cell, seed, "cpu", root=root)
         assert r["float32"]["distance_gap"] > run.LIMITS["distance_gap"], r
         assert r["float32"]["count_cells_off"] == 0, r
         assert r["forward_strand"]["count_cells_off"] > 0, r

@@ -83,25 +83,9 @@ def _is_device(e) -> bool:
     return e.device_type == torch.autograd.DeviceType.CUDA
 
 
-def read_profile(prof, host_starts_us: list[float],
-                 samples: list[tuple[float, str]]) -> dict:
-    """What the profiled matrices show.  ``host_starts_us`` are the
-    perf_counter times (microseconds) at which each marked matrix began,
-    in order; the first aligns the samples with the profiler's clock."""
-    spans, device = [], []
-    for e in prof.events():
-        if _is_device(e):
-            if e.name != MARK and e.time_range.end > e.time_range.start:
-                device.append((e.name, e.time_range.start, e.time_range.end))
-        elif e.name == MARK:
-            spans.append((e.time_range.start, e.time_range.end))
-    spans.sort()
-    device.sort(key=lambda d: d[1])
-    kernels: dict[str, list[float]] = {}
-    for name, t0, t1 in device:
-        tot = kernels.setdefault(name, [0.0, 0])
-        tot[0] += t1 - t0
-        tot[1] += 1
+def _busy_and_gaps(spans, device):
+    """The union of the device intervals (sorted by start) inside the
+    spans, in microseconds, and the stretches of the spans with none."""
     busy_us, gaps = 0.0, []
     k = 0
     for s0, s1 in spans:
@@ -119,6 +103,36 @@ def read_profile(prof, host_starts_us: list[float],
             j += 1
         if s1 > cursor:
             gaps.append((cursor, s1))
+    return busy_us, gaps
+
+
+def read_profile(prof, host_starts_us: list[float],
+                 samples: list[tuple[float, str]], cards: int = 0) -> dict:
+    """What the profiled matrices show.  ``host_starts_us`` are the
+    perf_counter times (microseconds) at which each marked matrix began,
+    in order; the first aligns the samples with the profiler's clock.
+    ``busy_s`` is the union over all cards; ``busy_s_by_card`` each
+    card's own, for cards 0 to ``cards`` - 1 and any other the trace
+    names."""
+    spans, device = [], []
+    for e in prof.events():
+        if _is_device(e):
+            if e.name != MARK and e.time_range.end > e.time_range.start:
+                device.append((e.name, e.time_range.start, e.time_range.end,
+                               e.device_index))
+        elif e.name == MARK:
+            spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    device.sort(key=lambda d: d[1])
+    kernels: dict[str, list[float]] = {}
+    for name, t0, t1, _ in device:
+        tot = kernels.setdefault(name, [0.0, 0])
+        tot[0] += t1 - t0
+        tot[1] += 1
+    busy_us, gaps = _busy_and_gaps(spans, device)
+    by_card = {card: _busy_and_gaps(
+        spans, [d for d in device if d[3] == card])[0] / 1e6
+        for card in sorted(set(range(cards)) | {d[3] for d in device})}
     offset = (host_starts_us[0] - spans[0][0]) if spans and host_starts_us \
         else 0.0
     # a gap's time goes to the samples inside it, in equal parts; a gap
@@ -144,6 +158,7 @@ def read_profile(prof, host_starts_us: list[float],
         "matrices": len(spans),
         "wall_s": wall_us / 1e6,
         "busy_s": busy_us / 1e6,
+        "busy_s_by_card": by_card,
         "kernels": {name: (us / 1e6, int(c))
                     for name, (us, c) in kernels.items()},
         "idle_by_host": idle,
