@@ -38,7 +38,9 @@ def run_workers(jobs: list[Callable[[], None]],
     job's exception is kept; after the join the first is raised, with the
     others, when there are any, as its cause.  Returns each job's wall
     seconds.  Each job runs in a ``worker`` span on its device
-    (``devices[k]``) under the caller's open span."""
+    (``devices[k]``) under the caller's open span, whose ``cpu_ns`` counts
+    the thread's CPU nanoseconds over the job (the rest of its wall it
+    waited: on the GIL, a readback or the card)."""
     walls = [0.0] * len(jobs)
     errors: list[BaseException | None] = [None] * len(jobs)
     parent = spans.current()
@@ -47,8 +49,13 @@ def run_workers(jobs: list[Callable[[], None]],
         t0 = time.perf_counter()
         try:
             with spans.span("worker", devices[k] if devices else None,
-                            parent=parent):
-                jobs[k]()
+                            parent=parent) as sp:
+                c0 = time.thread_time_ns() if sp else 0
+                try:
+                    jobs[k]()
+                finally:
+                    if sp:
+                        spans.count("cpu_ns", time.thread_time_ns() - c0)
         except BaseException as e:  # raised after the join
             errors[k] = e
         walls[k] = time.perf_counter() - t0

@@ -97,10 +97,11 @@ LABELS = {
     "sx.count": (lambda a: f"sx: host count from {a['events']} events",),
 }
 # host spans: every file's parse and normalize, the subjects' set-up, the
-# padded texts, one segmented-driver dispatch, one worker thread; and the
-# FASTA read's counters of files read on the card and on the host
+# padded texts, the subject schedule's plan, one segmented-driver
+# dispatch, one worker thread; and the FASTA read's counters of files read
+# on the card and on the host
 NAMES = frozenset(LABELS) | {"fasta.read", "subjects", "joint.text",
-                             "sx.text", "walk.dispatch", "worker",
+                             "sx.text", "sx.plan", "walk.dispatch", "worker",
                              "ingest.device_files", "ingest.host_files"}
 
 REQUESTS: collections.deque = collections.deque(maxlen=64)

@@ -35,10 +35,11 @@ dispatch forever.
 With several devices in a single-process run (``andix``'s per-device
 drivers, subject_pipeline.py:250-303) the groups are dealt round-robin to
 ``min(devices, groups)`` worker threads, one per device, each with its own
-query words on its device; ``ANDIX_SX_MESH=0`` keeps one worker.  Every
-worker plans with the smallest worker's memory budget, so all build the
-same caches.  ``LAST_BALANCE`` keeps each group's worker and events and
-each worker's wall.
+query words on its device; ``ANDIX_SX_MESH=0`` keeps one worker.  A plan
+with fewer groups than workers is split first, so that every worker gets a
+group (``plan_worker_groups``).  Every worker plans with the smallest
+worker's memory budget, so all build the same caches.  ``LAST_BALANCE``
+keeps each group's worker and events and each worker's wall.
 """
 
 from __future__ import annotations
@@ -111,6 +112,28 @@ def plan_groups(subjects, todo, low_memory: bool, cache_k: int,
     if cur:
         groups.append(cur)
     return groups
+
+
+def plan_worker_groups(subjects, todo, low_memory: bool, cache_k: int,
+                       budget: int, fixed_bytes: int, workers: int
+                       ) -> tuple[list[list[int]], bool]:
+    """``plan_groups``'s plan, split where it has fewer groups than
+    ``workers`` (a group's work is its subjects times every query): its
+    subjects dealt, in plan order, into ``min(workers, subjects)``
+    contiguous groups whose sizes differ by at most one, each planned
+    again, so that the memory budget and the cap only ever split further.
+    Returns the groups and whether the plan was split."""
+    groups = plan_groups(subjects, todo, low_memory, cache_k, budget,
+                         fixed_bytes)
+    flat = [i for g in groups for i in g]
+    k = min(workers, len(flat))
+    if k <= len(groups):
+        return groups, False
+    per, extra = divmod(len(flat), k)
+    cuts = [j * per + min(j, extra) for j in range(k + 1)]
+    return [g for a, b in zip(cuts, cuts[1:])
+            for g in plan_groups(subjects, flat[a:b], low_memory, cache_k,
+                                 budget, fixed_bytes)], True
 
 
 def index_length(subject) -> int:
@@ -252,9 +275,13 @@ def process_subject_index(todo: list[int], seqs, subjects, ctx: Context, M,
     qw_syms = int(q_off[-1]) + n
     qw_syms += (-qw_syms) % 16 + 16
 
-    groups = plan_groups(subjects, todo, ctx.low_memory, cache_k, budget,
-                         qw_syms // 2 + 16 * ecap)
-    n_workers = min(len(devices), len(groups))
+    with spans.span("sx.plan") as sp:
+        groups, split = plan_worker_groups(
+            subjects, todo, ctx.low_memory, cache_k, budget,
+            qw_syms // 2 + 16 * ecap, len(devices))
+        n_workers = min(len(devices), len(groups))
+        sp.set(groups=len(groups), workers=n_workers,
+               largest_group=max(map(len, groups)), split=int(split))
     leftovers: list[int] = []
     lock = threading.Lock()
     meter = parallel.LockedProgress(progress) if progress is not None else None
@@ -268,7 +295,7 @@ def process_subject_index(todo: list[int], seqs, subjects, ctx: Context, M,
             events = _process_group(group, qw, subjects, ctx, M, meter, ckpt,
                                     cache_k, ecap, n, gp, q_len_row,
                                     qw_base_pad, q_off, q_off_pad, raw_blob,
-                                    device, budget)
+                                    device, budget, n_workers)
             status = ("to the joint schedule" if events is None
                       else f"{events} events")
             with lock:
@@ -340,10 +367,14 @@ class _Stalled(Exception):
 
 def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
                    ecap, n, gp, q_len_row, qw_base_pad, q_off, q_off_pad,
-                   raw_blob, device, budget) -> int | None:
+                   raw_blob, device, budget, workers) -> int | None:
     """Build, walk and count one subject group and publish its rows;
     returns its event count, or None when the group goes back to the joint
-    schedule."""
+    schedule.  The segment count fills the lanes of all ``workers`` at
+    once, each walking a group like this one, toward ``LANE_TARGET``: the
+    cards walk side by side, but every segment's reconciliation is host
+    work the workers share under one interpreter lock, so a smaller group
+    a worker must not take more segments."""
     with spans.span("sx.index", device, subjects=len(group)) as sp:
         salcp, sw, cache2, nreal, n_host = _build_group_index(
             group, subjects, cache_k, device,
@@ -360,7 +391,8 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
         q_len2d[k] = q_len_row
         q_len2d[k, i] = 0  # diagonal pair skipped
     seg_k = _chain_segments(
-        int(q_len_row.max()) if n else 0, len(group) * max(n - 1, 1)
+        int(q_len_row.max()) if n else 0,
+        len(group) * max(n - 1, 1) * workers
     )
 
     overflowed = False
@@ -395,7 +427,8 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
         return res
 
     ecap_now = ecap
-    with spans.span("sx.walk", device, kind=spans.NO_LINE) as walk_span:
+    with spans.span("sx.walk", device, kind=spans.NO_LINE,
+                    segments=seg_k) as walk_span:
         for escalation in range(3):
             overflowed = False
             idle_cap = None

@@ -99,15 +99,16 @@ line each; any failed phase raises and the script exits non-zero:
    ``pipeline.calculate_matrix(devices=...)`` (peer placement is then not
    exercised).  The 8 x 5 Mbp joint grid (sharded, a contiguous share of
    subjects a worker) and the subject-index schedule under
-   ``ANDIX_GROUP_SUBJECTS=4`` (two groups, two workers) each run four
-   times in turns, one worker (this call's baseline), all workers, all
-   workers, one worker; every run must print phase 7's bytes, and every
-   worker's card must launch the schedule's kernels; printed: the walls,
-   and per run over several workers each card's launch counts and peak
-   memory and each worker's wall (``LAST_BALANCE``).  Then ``python -m
-   andix_torch.cli`` as two processes at 8 x 1 Mbp (torchrun's variables,
-   gloo on loopback; rank r on card r % device_count): both exit 0, rank
-   0 prints phase 6's bytes and rank 1 nothing.
+   ``ANDIX_GROUP_SUBJECTS=4`` (two groups, split to one a worker) each
+   run four times in turns, one worker (this call's baseline), all
+   workers, all workers, one worker; every run must print phase 7's
+   bytes, and every worker's card must launch the schedule's kernels;
+   printed: the walls, and per run over several workers each card's
+   launch counts and peak memory and each worker's wall
+   (``LAST_BALANCE``).  Then ``python -m andix_torch.cli`` as two
+   processes at 8 x 1 Mbp (torchrun's variables, gloo on loopback; rank
+   r on card r % device_count): both exit 0, rank 0 prints phase 6's
+   bytes and rank 1 nothing.
 
 The line before the last is the kernel table as one JSON object; the
 last line is ``{"ok": true, "device": {...}}``.  On a host with several
@@ -2200,9 +2201,10 @@ def phase_multi_card(paths_5m, joint_5m, paths_1m, joint_1m):
     """Phase 8: the pair grid over several workers.  With two or more
     cards the workers are the cards; with one, two workers share cuda:0.
     The 8 x 5 Mbp joint grid (sharded) and subject-index schedule (two
-    groups) must print phase 7's bytes, every worker's card must launch the
-    schedule's kernels; two processes at 8 x 1 Mbp must print phase 6's
-    bytes from rank 0 and nothing from rank 1."""
+    groups, split to one a worker) must print phase 7's bytes, every
+    worker's card must launch the schedule's kernels; two processes at
+    8 x 1 Mbp must print phase 6's bytes from rank 0 and nothing from
+    rank 1."""
     from andix_torch import parallel, pipeline, subject_pipeline
 
     count = torch.cuda.device_count()
@@ -2224,7 +2226,7 @@ def phase_multi_card(paths_5m, joint_5m, paths_1m, joint_1m):
          [d for d, b in zip(devices, shares) if b]),
         ("subject", {"ANDIX_INDEX": "subject", "ANDIX_GROUP_SUBJECTS": "4"},
          subject_pipeline.LAST_BALANCE, ("chain_walk_flat_sx",),
-         devices[:2]),
+         devices),
     ]
     for label, env, balance, kernels_used, workers in runs:
         # one worker, all workers, all workers, one worker: in turns
