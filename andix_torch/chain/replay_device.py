@@ -7,8 +7,9 @@
   uniqueness flag (bit 30), ``ps`` is the subject position.  Rows stack
   into ``[Sg, QB]`` tables.
 * ``chain_walk_flat``: the segmented schedule's resumable walk over a
-  flat list of lanes, called by the host loop in ``chain.segmented`` (a
-  copy of ``andix.chain.segmented``) and, one lane a (subject, query)
+  flat list of lanes, called by the host loop in ``chain.segdrive`` (or
+  its fallback ``chain.segmented``, a copy of ``andix.chain.segmented``)
+  and, one lane a (subject, query)
   pair walked to its end into one event buffer, by
   ``chain_anchors_device`` (``andix``'s unsegmented events walk).  On
   CUDA tensors it launches the

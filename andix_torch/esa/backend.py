@@ -13,7 +13,7 @@ fit; then segment ids, inverse SA, the query blob's SA slots and the
 range-min structure.  Per subject group
 (``subject_group_counts``): ``[Sg, QB]`` match-statistics tables (two
 flag scans per subject), the
-segmented chain walk (``chain.segmented`` driving ``chain_walk_flat``)
+segmented chain walk (``chain.segdrive`` driving ``chain_walk_flat``)
 when queries are cut into K > 1 segments, else the unsegmented walk
 (``chain_anchors_device``), and the 16-cell counts from the anchor
 events on the host; or, under ``ANDIX_REPLAY=loop`` and when the
@@ -31,7 +31,7 @@ import torch
 
 from .. import ingest, spans
 from ..chain import events as chain_events
-from ..chain import segmented
+from ..chain import segdrive
 from ..chain.replay_device import (
     LANE_FIELDS, chain_anchors_device, chain_walk_flat, fetch_walk,
     group_subject_tables, replay_lanes, replay_rows,
@@ -416,7 +416,7 @@ class TorchBackend:
         with spans.span("joint.walk", dev) as sp:
             res = None
             if seg_k > 1:
-                res = segmented.segmented_group_anchors(
+                res = segdrive.segmented_group_anchors(
                     walk, sg, gp, qb, starts, rs_lens, thresholds,
                     ctx.q_base_h, ctx.q_start_h, q_len2d, seg_k, ecap)
                 if res is not None:

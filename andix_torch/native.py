@@ -28,19 +28,20 @@ _lib = None
 _load_error: str | None = None
 
 
-def build() -> str:
-    """Compile the host library if missing or stale; returns its path."""
+def build(source: str = SOURCE, lib: str = LIB,
+          flags: tuple = ("-O3", "-march=native", "-fopenmp")) -> str:
+    """Compile a host library (by default this one) from ``source`` into
+    ``lib`` if missing or stale; returns its path."""
     if (
-        os.path.exists(LIB)
-        and os.path.getmtime(LIB) >= os.path.getmtime(SOURCE)
+        os.path.exists(lib)
+        and os.path.getmtime(lib) >= os.path.getmtime(source)
     ):
-        return LIB
+        return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     # build to a private name and rename: parallel test workers may race
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-           "-o", tmp, SOURCE]
+    cmd = ["g++", *flags, "-shared", "-fPIC", "-o", tmp, source]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
     except subprocess.CalledProcessError as e:
@@ -49,8 +50,8 @@ def build() -> str:
     except FileNotFoundError as e:
         os.unlink(tmp)
         raise RuntimeError("g++ not available for native build") from e
-    os.replace(tmp, LIB)
-    return LIB
+    os.replace(tmp, lib)
+    return lib
 
 
 def _load():

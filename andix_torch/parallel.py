@@ -20,6 +20,7 @@ import numpy as np
 import torch.distributed as dist
 
 from . import _distributed, kernels, native, spans
+from .chain import segdrive
 from .model import CountMatrix
 
 
@@ -76,11 +77,13 @@ def run_workers(jobs: list[Callable[[], None]],
 
 
 def load_libraries(devices) -> None:
-    """Build and load the kernel library (for CUDA devices) and the host
-    counting library once, before worker threads start."""
+    """Build and load the kernel library (for CUDA devices), the host
+    counting library and the segmented walk driver once, before worker
+    threads start."""
     if any(d.type == "cuda" for d in devices):
         kernels.cuda_lib()
     native.available()
+    segdrive.available()
 
 
 class LockedProgress:

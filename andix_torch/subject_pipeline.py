@@ -15,7 +15,7 @@ Subjects are grouped so that the group's resident index (SA + LCP +
 words + k-mer caches), one build's transients and the walk's buffers fit
 the device's memory budget (``pipeline.memory_budget``); each group walks
 all of its (subject, query) pairs through the segmented driver
-(``chain.segmented``, exact splicing) over
+(``chain.segdrive``, exact splicing) over
 ``chain.walk_sx.chain_walk_flat_sx``, each dispatch's events fetched
 packed (``chain.evpack``, ``ANDIX_EVPACK``, as ``andix`` does), and the
 16-cell counts come from the same host event counting as the joint
@@ -53,7 +53,7 @@ import torch
 
 from . import _distributed, parallel, spans
 from .chain import events as chain_events
-from .chain import evpack, segmented
+from .chain import evpack, segdrive
 from .chain.replay_device import fetch_walk
 from .chain.walk_sx import SX_LANE_FIELDS, chain_walk_flat_sx
 from .esa import backend, joint, subject_index
@@ -400,7 +400,7 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
 
     def walk(arr, chunk_iters, maxev):
         nonlocal overflowed, idle_cap
-        # ``segmented`` re-issues the lanes a dispatch leaves unfinished;
+        # the driver re-issues the lanes a dispatch leaves unfinished;
         # after a dispatch that advanced none of them, one at the same cap
         # returns the same, and so on forever: a probe needs more
         # iterations than the chunk cap's ceiling (a long exact match, as
@@ -433,7 +433,7 @@ def _process_group(group, qw, subjects, ctx, M, progress, ckpt, cache_k,
             overflowed = False
             idle_cap = None
             try:
-                res = segmented.segmented_group_anchors(
+                res = segdrive.segmented_group_anchors(
                     walk, sg, gp, 0, np.zeros(sg, np.int32), rs_lens,
                     thresholds, qw_base_pad, qw_base_pad, q_len2d, seg_k,
                     ecap_now)

@@ -19,7 +19,7 @@ from andix.esa.backend_jax import JaxBackend
 from andix.runtime import Context as JContext
 from andix.sequence import Seq as JSeq
 from andix_torch import pipeline
-from andix_torch.chain import segmented
+from andix_torch.chain import segdrive, segmented
 from andix_torch.runtime import Context
 from andix_torch.sequence import Seq
 
@@ -82,13 +82,30 @@ def test_k16_adversarial_budgets(joint_schedule):
     joint_schedule(fam, k=16, CHUNK_ITERS=16, REPAIR_EVENTS=1)
 
 
-def test_nonconvergence_reruns_unsegmented(joint_schedule, capsys):
-    """A resolve loop that never converges makes the segmented walk
-    return None; the port reruns the group with one segment per lane."""
+def test_nonconvergence_reruns_unsegmented(joint_schedule, monkeypatch,
+                                           capsys):
+    """A resolve loop that never converges (one repair event, no
+    fall-back, no merge: andix's merge search patched out, and the port's
+    cold walks' events given s = -1 on their way to its driver, so no
+    repair event meets one) makes the segmented walk return None; the
+    port reruns the group with one segment per lane."""
+    driver = segdrive.segmented_group_anchors
+
+    def without_merges(walk, *rest):
+        def cold_apart(arr, chunk_iters, maxev):
+            ev, *out = walk(arr, chunk_iters, maxev)
+            if maxev > 1 and ev.shape[1]:
+                ev = ev.copy()
+                ev[2] = -1
+            return (ev, *out)
+        return driver(cold_apart, *rest)
+
+    monkeypatch.setattr(jsegmented, "_find_merge", lambda rep, cold: None)
+    monkeypatch.setattr(segdrive, "segmented_group_anchors", without_merges)
     fam = _family(3, 3000, [0.02, 0.1], seed=7)
-    joint_schedule(fam, k=4, REPAIR_EVENTS=1, MAX_EXTENSIONS=10**9,
-                   _find_merge=lambda rep, cold: None)
-    assert "did not converge" in capsys.readouterr().err
+    joint_schedule(fam, k=4, REPAIR_EVENTS=1, MAX_EXTENSIONS=10**9)
+    err = capsys.readouterr().err
+    assert err.count("did not converge") == 2  # andix's and the port's
 
 
 def test_joined_contigs(joint_schedule):
@@ -119,7 +136,7 @@ def test_event_overflow_falls_back_to_loop(joint_schedule, monkeypatch):
 
     monkeypatch.setenv("ANDIX_EVENT_CAP", "4")
     caps, replays = [], []
-    orig, orig_anchors, orig_replay = (segmented.segmented_group_anchors,
+    orig, orig_anchors, orig_replay = (segdrive.segmented_group_anchors,
                                        backend.chain_anchors_device,
                                        backend.replay_rows)
 
@@ -135,7 +152,7 @@ def test_event_overflow_falls_back_to_loop(joint_schedule, monkeypatch):
         replays.append(a[6])  # exact_counts
         return orig_replay(*a, **kw)
 
-    monkeypatch.setattr(segmented, "segmented_group_anchors", counting)
+    monkeypatch.setattr(segdrive, "segmented_group_anchors", counting)
     monkeypatch.setattr(backend, "chain_anchors_device", unsegmented)
     monkeypatch.setattr(backend, "replay_rows", replaying)
     fam = _family(3, 2000, [0.02, 0.3], seed=47)

@@ -337,7 +337,7 @@ def loop_replay(monkeypatch):
     def no_walk(*a, **kw):
         pytest.fail("the event walk ran")
 
-    monkeypatch.setattr(backend.segmented, "segmented_group_anchors",
+    monkeypatch.setattr(backend.segdrive, "segmented_group_anchors",
                         no_walk)
     monkeypatch.setattr(backend, "chain_anchors_device", no_walk)
 
@@ -397,7 +397,7 @@ def test_border_pair_loop_and_events_equal_andix(monkeypatch, model):
 
     ran = []
     replay, walk, whole = (backend.replay_rows,
-                           backend.segmented.segmented_group_anchors,
+                           backend.segdrive.segmented_group_anchors,
                            backend.chain_anchors_device)
 
     def loop(*a, **kw):
@@ -413,7 +413,7 @@ def test_border_pair_loop_and_events_equal_andix(monkeypatch, model):
         return whole(*a, **kw)
 
     monkeypatch.setattr(backend, "replay_rows", loop)
-    monkeypatch.setattr(backend.segmented, "segmented_group_anchors", events)
+    monkeypatch.setattr(backend.segdrive, "segmented_group_anchors", events)
     monkeypatch.setattr(backend, "chain_anchors_device", events_whole)
     genomes = border_pair()
     names = ["g0", "g1"]
@@ -472,7 +472,7 @@ def test_sharded_loop_equals_andix(monkeypatch):
     def no_walk(*a, **kw):
         pytest.fail("the event walk ran")
 
-    monkeypatch.setattr(backend.segmented, "segmented_group_anchors",
+    monkeypatch.setattr(backend.segdrive, "segmented_group_anchors",
                         no_walk)
     monkeypatch.setattr(backend, "chain_anchors_device", no_walk)
     got = pipeline.calculate_matrix([Seq(d, nm) for nm, d in zip(names, fam)],

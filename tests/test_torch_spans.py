@@ -222,6 +222,11 @@ CASES = {
 }
 
 
+# the cases whose group the segmented driver walks (once)
+DRIVEN = {"joint_segmented": 1, "subject": 1, "event_overflow": 1,
+          "stalled": 1}
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_phase_file_lines(case, traced, tmp_path, monkeypatch):
     """A CLI run writes each phase line its phase span stands for, in the
@@ -268,3 +273,9 @@ def test_phase_file_lines(case, traced, tmp_path, monkeypatch):
     residual = wall - covered
     assert all(req["t0"] <= a <= b <= req["t1"] + 1000 for _, a, b in top)
     assert abs(total + residual - wall) <= 0.01 * wall
+
+    # each segmented walk of a group counts its driver on its walk span
+    driven = [s["counts"].get("walk.driver_native", 0) for s in req["spans"]
+              if s["name"] in ("joint.walk", "sx.walk")]
+    assert sum(driven) == DRIVEN.get(case, 0), driven
+    assert not any("walk.driver_python" in s["counts"] for s in req["spans"])

@@ -32,7 +32,7 @@ from andix.esa.backend_jax import (
 from andix.runtime import Context as JContext, Model as JModel
 from andix.sequence import Seq, subject_init
 from andix_torch import pipeline, subject_pipeline
-from andix_torch.chain import segmented
+from andix_torch.chain import segdrive, segmented
 from andix_torch.esa import backend
 from andix_torch.esa import subject_index as si
 from andix_torch.runtime import Context, Model
@@ -272,7 +272,7 @@ def driver_calls(monkeypatch):
     """Records (ecap, schedule) of every segmented walk and the joint
     blocks that ran."""
     calls = {"sx": [], "joint": [], "blocks": []}
-    walk = segmented.segmented_group_anchors
+    walk = segdrive.segmented_group_anchors
 
     def recording(fn, sg, gp, qb, *rest):
         calls["joint" if qb else "sx"].append(rest[-1])
@@ -284,7 +284,7 @@ def driver_calls(monkeypatch):
         calls["blocks"].append(list(blk))
         return block(blk, *a, **kw)
 
-    monkeypatch.setattr(segmented, "segmented_group_anchors", recording)
+    monkeypatch.setattr(segdrive, "segmented_group_anchors", recording)
     monkeypatch.setattr(pipeline, "_process_block", recording_block)
     return calls
 
@@ -305,14 +305,31 @@ def test_odd_event_cap(jax_grids, driver_calls, cap):
         assert not driver_calls["blocks"]
 
 
+def _without_merges(driver):
+    """``driver`` with a walk callback whose cold walks' events (pass 1:
+    budgets above one repair event) carry s = -1, so that no repair event
+    meets one of them and no segment merges."""
+    def driving(walk, *rest):
+        def cold_apart(arr, chunk_iters, maxev):
+            ev, *out = walk(arr, chunk_iters, maxev)
+            if maxev > 1 and ev.shape[1]:
+                ev = ev.copy()
+                ev[2] = -1
+            return (ev, *out)
+        return driver(cold_apart, *rest)
+    return driving
+
+
 def test_nonconvergence_goes_to_the_joint_schedule(jax_grids, driver_calls,
                                                   monkeypatch, capsys):
-    """A segmented resolve that never converges: the group walks at one
-    event cap only (a wider buffer would walk the same way) and its rows
-    go to the joint schedule, with the same matrix."""
+    """A segmented resolve that never converges (one repair event, no
+    fall-back, no merge): the group walks at one event cap only (a wider
+    buffer would walk the same way) and its rows go to the joint
+    schedule, with the same matrix."""
     monkeypatch.setattr(segmented, "REPAIR_EVENTS", 1)
     monkeypatch.setattr(segmented, "MAX_EXTENSIONS", 10**9)
-    monkeypatch.setattr(segmented, "_find_merge", lambda rep, cold: None)
+    monkeypatch.setattr(segdrive, "segmented_group_anchors",
+                        _without_merges(segdrive.segmented_group_anchors))
     got = _grids("event_cap_8", env={"ANDIX_CHAIN_SEGMENTS": 4})
     assert _equal(got, jax_grids["event_cap_8"])
     assert len(driver_calls["sx"]) == 1
@@ -323,7 +340,7 @@ def test_nonconvergence_goes_to_the_joint_schedule(jax_grids, driver_calls,
 def test_stalled_walk_goes_to_the_joint_schedule(jax_grids, driver_calls,
                                                  monkeypatch):
     """A chunk cap of 64 iterations: the clonal pair's exact matches need
-    more, so ``segmented`` would repeat a dispatch unchanged forever (as
+    more, so the driver would repeat a dispatch unchanged forever (as
     andix's does); the group goes to the joint schedule after the first
     repeat, with andix's matrix."""
     monkeypatch.setattr(segmented, "CHUNK_ITERS", 64)

@@ -24,7 +24,7 @@ from andix.runtime import Context
 from andix.sequence import Seq, subject_init
 from andix_torch import pipeline as tpipeline
 from andix_torch.chain import replay_device as rd
-from andix_torch.chain import segmented
+from andix_torch.chain import segdrive, segmented
 from andix_torch.esa import joint as tjoint
 from andix_torch.esa.backend import BlockContext, TorchBackend
 from andix_torch.runtime import Context as TContext
@@ -478,7 +478,8 @@ def _grids(fam):
 @pytest.fixture
 def spies(monkeypatch):
     """Which walk and count paths each package takes: andix's
-    ``_subject_group_counts_loop``, the port's segmented driver,
+    ``_subject_group_counts_loop``, the port's segmented driver
+    (``chain.segdrive``'s entry),
     ``chain_anchors_device`` (its ecap) and ``_loop_counts``."""
     from andix_torch.esa import backend as tbackend
 
@@ -486,7 +487,7 @@ def spies(monkeypatch):
     monkeypatch.setenv("ANDIX_INDEX", "joint")
     monkeypatch.setenv("ANDIX_SHARDED", "0")
     orig_jloop = JaxBackend._subject_group_counts_loop
-    orig_seg = segmented.segmented_group_anchors
+    orig_seg = segdrive.segmented_group_anchors
     orig_anchors = tbackend.chain_anchors_device
     orig_loop = TorchBackend._loop_counts
 
@@ -507,7 +508,7 @@ def spies(monkeypatch):
         return orig_loop(self, *a, **kw)
 
     monkeypatch.setattr(JaxBackend, "_subject_group_counts_loop", jax_loop)
-    monkeypatch.setattr(segmented, "segmented_group_anchors", seg)
+    monkeypatch.setattr(segdrive, "segmented_group_anchors", seg)
     monkeypatch.setattr(tbackend, "chain_anchors_device", anchors)
     monkeypatch.setattr(TorchBackend, "_loop_counts", loop)
     return calls
@@ -543,7 +544,7 @@ def test_cap_between_a_dispatch_and_the_group_takes_the_replay(
         per_dispatch.append(res[0].shape[1])
         return res
 
-    res = segmented.segmented_group_anchors(
+    res = segdrive.segmented_group_anchors(
         walk, geo["sg"], geo["gp"], jctx.tq_d.shape[0], geo["starts"],
         geo["rs_lens"], geo["thresholds"], jctx.q_base_h, jctx.q_start_h,
         geo["q_len2d"], 1, 1 << 20)
