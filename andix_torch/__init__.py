@@ -9,11 +9,11 @@ has an obvious counterpart.
 
 The package imports ``torch`` and numpy only — never ``jax`` and never
 ``andix``.  The device-free host modules (fasta, sequence, model, output,
-runtime, esa.joint, esa.sa_numpy, chain.events, chain.segmented,
-chain.replay_py, and the numpy half of esa.subject_index) are verbatim
-copies of ``andix``'s, held equal by the tests.  The segmented walk's
-host loop runs compiled (``chain.segdrive``, g++ at first use), with
-``chain.segmented`` as its fallback and the tests' reference.
+runtime, esa.joint, esa.sa_numpy, chain.events, chain.replay_py, and
+the numpy half of esa.subject_index) are verbatim copies of ``andix``'s,
+held equal by the tests.  The segmented walk's host loop is compiled
+(``chain.segdrive``, g++ at first use); the tests hold it to ``andix``'s
+own ``chain.segmented``.
 
 On a card the CLI reads its FASTA files there (``ingest``: one upload of
 the files' bytes, one kernel launch that parses, normalizes and

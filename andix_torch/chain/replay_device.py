@@ -7,9 +7,8 @@
   uniqueness flag (bit 30), ``ps`` is the subject position.  Rows stack
   into ``[Sg, QB]`` tables.
 * ``chain_walk_flat``: the segmented schedule's resumable walk over a
-  flat list of lanes, called by the host loop in ``chain.segdrive`` (or
-  its fallback ``chain.segmented``, a copy of ``andix.chain.segmented``)
-  and, one lane a (subject, query)
+  flat list of lanes, called by the segmented walk driver
+  (``chain.segdrive``) and, one lane a (subject, query)
   pair walked to its end into one event buffer, by
   ``chain_anchors_device`` (``andix``'s unsegmented events walk).  On
   CUDA tensors it launches the
@@ -34,7 +33,7 @@ import torch
 
 from .. import kernels, spans
 from ..esa import matchstats, rmq
-from . import segmented
+from . import segdrive
 
 UNIQ_BIT = 1 << 30
 
@@ -507,7 +506,7 @@ _SITE_BATCH = 1 << 24
 REPLAY_MIN_QLEN = 1 << 17
 REPLAY_MIN_SEGMENT = 1 << 15
 REPLAY_WARPS_PER_SM = 24
-REPLAY_TRAIL = segmented.REPAIR_EVENTS
+REPLAY_TRAIL = segdrive.REPAIR_EVENTS
 
 
 def replay_segments(q_len, sms: int) -> int:

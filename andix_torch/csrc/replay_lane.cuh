@@ -23,7 +23,7 @@
 // a lane here counts each interval in the probe that makes it due, and
 // the sums are the same integers.
 //
-// Segmented lanes, reconciled exactly (chain/segmented.py's argument,
+// Segmented lanes, reconciled exactly (andix's chain/segmented.py argument,
 // with the one bit the counting adds).  A lane's query is cut into K
 // segments [j * ceil(qlen / K), (j + 1) * ceil(qlen / K)) (plan_segments).
 // Segment j holds the probe calls of the unsegmented walk that start at a

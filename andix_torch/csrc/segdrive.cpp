@@ -1,5 +1,5 @@
 // The segmented walk driver's host reconciliation (chain/segdrive.py):
-// ``chain.segmented.segmented_group_anchors`` rule for rule, with the
+// andix's ``chain.segmented.segmented_group_anchors`` rule for rule, with the
 // sublanes held as arrays in one driver object and each dispatch's events
 // split by one counting pass over their lane ids.
 //
@@ -109,7 +109,7 @@ enum Phase { P_COLD, P_PROVISIONAL, P_RESOLVE, P_DONE };
 constexpr int N_FIELDS = 12;  // row qoff qs ss rl thr seg_end pos0 lq0 ls0 ll0 maxev
 
 struct Driver {
-    // parameters, read by the caller from chain.segmented at call time
+    // parameters, read by the caller from chain/segdrive.py at call time
     i64 k, repair_events, max_extensions, chunk_iters0, chunk_iters_max, big,
         min_lanes;
     double chunk_budget_s, ns_per_lane_iter;
@@ -439,9 +439,9 @@ struct Driver {
 extern "C" {
 
 // ip: k, REPAIR_EVENTS, MAX_EXTENSIONS, CHUNK_ITERS, CHUNK_ITERS_MAX, BIG,
-// the least lane bucket; dp: CHUNK_BUDGET_S, NS_PER_LANE_ITER.  The lanes
+// MIN_LANES; dp: CHUNK_BUDGET_S, NS_PER_LANE_ITER.  The lanes
 // are (s, g) with q_len2d[s, g] > 0, s-major; each is cut into k segments
-// as chain.segmented.plan_segments cuts it.  NULL when out of memory.
+// as andix's chain.segmented.plan_segments cuts it.  NULL when out of memory.
 void* segdrive_new(i64 sg, i64 gp, const i64* subj_starts, const i64* rs_lens,
                    const i64* thresholds, const i64* q_base, const i64* q_start,
                    const i64* q_len2d, const i64* ip, const double* dp) {

@@ -43,6 +43,8 @@ from ..runtime import Model
 from . import doubling, matchstats, plcp, rmq, sa_numpy
 from .joint import SEPARATOR_BASE, BlockLayout
 
+# the smallest padded size: ``ANDIX_MIN_BUCKET`` as in ``andix``, whose
+# parity tests set it for both packages, for small pads at test sizes
 _MIN_BUCKET = int(os.environ.get("ANDIX_MIN_BUCKET", 1 << 16))
 # walk probe steps per loop iteration, and jump-chain hops chased per
 # probe: the JAX backend's defaults for the segmented walk

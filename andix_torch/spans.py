@@ -99,12 +99,12 @@ LABELS = {
 # host spans: every file's parse and normalize, the subjects' set-up, the
 # padded texts, the subject schedule's plan, one segmented-driver
 # dispatch, one worker thread; the FASTA read's counters of files read
-# on the card and on the host; and the walk's counters of groups walked
-# by the compiled segmented driver and by its Python fallback
+# on the card and on the host; and the walk's counter of groups walked
+# by the segmented driver
 NAMES = frozenset(LABELS) | {"fasta.read", "subjects", "joint.text",
                              "sx.text", "sx.plan", "walk.dispatch", "worker",
                              "ingest.device_files", "ingest.host_files",
-                             "walk.driver_native", "walk.driver_python"}
+                             "walk.driver_native"}
 
 REQUESTS: collections.deque = collections.deque(maxlen=64)
 

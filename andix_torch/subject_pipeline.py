@@ -14,8 +14,8 @@ andi's own design — one index per subject, queries streamed past it
 Subjects are grouped so that the group's resident index (SA + LCP +
 words + k-mer caches), one build's transients and the walk's buffers fit
 the device's memory budget (``pipeline.memory_budget``); each group walks
-all of its (subject, query) pairs through the segmented driver
-(``chain.segdrive``, exact splicing) over
+all of its (subject, query) pairs through the compiled segmented walk
+driver (``chain.segdrive``, exact splicing) over
 ``chain.walk_sx.chain_walk_flat_sx``, each dispatch's events fetched
 packed (``chain.evpack``, ``ANDIX_EVPACK``, as ``andix`` does), and the
 16-cell counts come from the same host event counting as the joint
@@ -194,7 +194,9 @@ def _build_group_index(group, subjects, cache_k: int, device, budget: int,
             int(overflowed.sum()))
 
 
-LANE_TARGET = int(os.environ.get("ANDIX_LANE_TARGET", "8192"))
+# the lane count that the segment count K aims a dispatch at
+# (``_chain_segments``): andix's value, like the walk driver's parameters
+LANE_TARGET = 8192
 
 
 def _chain_segments(max_qlen: int, lanes_base: int) -> int:

@@ -113,7 +113,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, tree)
     import andix_torch
     from andix_torch import kernels
-    from andix_torch.chain import segmented
     from andix_torch.esa import scans
     from andix_torch.esa.backend import bucket
 
@@ -154,7 +153,7 @@ def main(argv=None) -> int:
         from andix_torch.chain import walk_sx
 
         ms = cs.cuda_ms(lambda: walk_sx.chain_walk_flat_sx(
-            *index, lanes, segmented.CHUNK_ITERS, segmented.BIG, cache_k,
+            *index, lanes, cs.WALK_FIRST_ITERS, cs.WALK_BIG, cache_k,
             ecap), max(1, args.reps // 4))
         label = f"8x{length // 1_000_000}Mbp subject first dispatch"
         print(f"chain_walk_flat_sx {label} (K={k}, "

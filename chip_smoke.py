@@ -160,6 +160,29 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # andix's hybrid level buffer (a TPU's memory cap), which the phases cut
 # the port's to where they show the overflow and the host LCP
 ANDIX_ROWS = 14
+# the segmented walk driver's first dispatch (``chain.segdrive``'s
+# CHUNK_ITERS, BIG and MIN_LANES), written out here because this file
+# imports the package only inside its phases (``bench_kernels.py --tree``
+# runs them on another commit's package)
+WALK_FIRST_ITERS = 768
+WALK_BIG = 1 << 29
+WALK_MIN_LANES = 16
+
+
+def cold_segments(qlen: int, k: int, thr: int):
+    """A lane's K query segments as the driver's first pass walks them
+    (``andix``'s ``chain.segmented.plan_segments``, empty ones dropped):
+    (end, entry) pairs, the first from the lane's start and the rest cold,
+    with no anchor within the threshold's reach."""
+    step = -(-qlen // k) if qlen > 0 else 1
+    out = []
+    for j in range(k):
+        start, end = min(j * step, qlen), min((j + 1) * step, qlen)
+        if end > start:
+            qend = start - thr - 2
+            out.append((end, (0, 0, 0, 0) if j == 0
+                        else (start, qend, qend, 0)))
+    return out
 
 
 def say(msg: str) -> None:
@@ -280,8 +303,6 @@ def phase_flag_scan(dev):
 def _walk_lanes(ctx, be, subjects, genomes, dev, k=1):
     """Every (subject, query) lane of a block cut into k segments with the
     segmented walk's first-pass (cold) entries."""
-    from andix_torch.chain import segmented
-
     segs, starts, rs_lens, thresholds, q_len2d = be._group_tables(
         ctx, genomes, dict(enumerate(subjects)))
     arr = {n: [] for n in ("row", "qoff", "qs", "ss", "rl", "thr",
@@ -289,10 +310,7 @@ def _walk_lanes(ctx, be, subjects, genomes, dev, k=1):
     for s in range(len(genomes)):
         thr = int(thresholds[s])
         for g in range(q_len2d.shape[1]):
-            for j, (st, en) in enumerate(
-                    segmented.plan_segments(int(q_len2d[s, g]), k)):
-                entry = (0, 0, 0, 0) if j == 0 else segmented._entry_arrays(
-                    segmented._canon(st, -segmented.BIG, 0, thr))
+            for en, entry in cold_segments(int(q_len2d[s, g]), k, thr):
                 for name, val in zip(arr, (s, ctx.q_base_h[g],
                                            ctx.q_start_h[g], starts[s],
                                            rs_lens[s], thr, en) + entry):
@@ -399,8 +417,9 @@ def _walk_dispatch(dev, length, big):
     Returns (kernel ms, plain ms, bound ms)."""
     ctx, lanes, mlun, ps = _walk_block(dev, 8, length, 2026, 8)
     label = f"8x{length // 1_000_000}Mbp first dispatch"
-    kernel, plain, counts = _compare_walk(label, ctx, lanes, mlun, ps, 768,
-                                          big, ctx.tq.shape[0] // 2)
+    kernel, plain, counts = _compare_walk(label, ctx, lanes, mlun, ps,
+                                          WALK_FIRST_ITERS, big,
+                                          ctx.tq.shape[0] // 2)
     ms = cuda_ms(kernel, 5)
     plain_ms = cuda_ms(plain, 1, warm=False)
     lb = lanes["row"].shape[0]
@@ -433,7 +452,7 @@ def _sx_walk_setup(dev, n_genomes, length, seed):
     segments, padded to the driver's lane bucket."""
     from andix_torch import pipeline
     from andix_torch import subject_pipeline as sp
-    from andix_torch.chain import segmented, walk_sx
+    from andix_torch.chain import walk_sx
     from andix_torch.sequence import Seq, subject_init
 
     seqs = [Seq(d, name) for name, d in make_family(n_genomes, length, seed)]
@@ -453,15 +472,12 @@ def _sx_walk_setup(dev, n_genomes, length, seed):
         for g in range(n):
             if g == s:
                 continue
-            for j, (st, en) in enumerate(
-                    segmented.plan_segments(int(q_len[g]), k)):
-                entry = (0, 0, 0, 0) if j == 0 else segmented._entry_arrays(
-                    segmented._canon(st, -segmented.BIG, 0, thr))
+            for en, entry in cold_segments(int(q_len[g]), k, thr):
                 vals = (s, qw_base[g], subjects[s].len, thr, en) + entry
                 for name, v in zip(walk_sx.SX_LANE_FIELDS, vals):
                     arr[name].append(int(v))
-    lb = segmented._lane_bucket(len(arr["row"]))
-    pad = {"rl": 1, "thr": segmented.BIG}
+    lb = max(WALK_MIN_LANES, 1 << (len(arr["row"]) - 1).bit_length())
+    pad = {"rl": 1, "thr": WALK_BIG}
     lanes = {name: torch.tensor(v + [pad.get(name, 0)] * (lb - len(v)),
                                 dtype=torch.int32, device=dev)
              for name, v in arr.items()}
@@ -518,13 +534,11 @@ def _sx_dispatch(dev, length):
     first chunk cap and event buffer; kernel == plain, both timed, the
     plain run's counts and the complete byte bound printed.  Returns
     (kernel ms, plain ms, max_abs_err, bound ms)."""
-    from andix_torch.chain import segmented
-
     index, lanes, cache_k, ecap, k = _sx_walk_setup(dev, 8, length, 2026)
     label = f"8x{length // 1_000_000}Mbp first dispatch"
     kernel, plain, err, _, counts = _compare_sx(
-        f"{label} (K={k})", index, lanes, segmented.CHUNK_ITERS,
-        segmented.BIG, cache_k, ecap)
+        f"{label} (K={k})", index, lanes, WALK_FIRST_ITERS, WALK_BIG,
+        cache_k, ecap)
     ms = cuda_ms(kernel, 5)
     plain_ms = cuda_ms(plain, 1)
     nbytes, bound_ms = sx_bound(counts, lanes["row"].shape[0])

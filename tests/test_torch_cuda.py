@@ -18,7 +18,7 @@ import torch
 from andix_torch import bootstrap, ingest, kernels, subject_pipeline
 from andix_torch.chain import evpack
 from andix_torch.chain import replay_device as rd
-from andix_torch.chain import segmented, walk_sx
+from andix_torch.chain import walk_sx
 from andix_torch.esa import doubling, joint, plcp, rmq, scans, subject_index
 from andix_torch.esa.backend import TorchBackend, pad_symbols
 from andix_torch.sequence import Seq, subject_init
@@ -28,6 +28,22 @@ torch.set_num_threads(2)
 NUCL = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 pytestmark = pytest.mark.cuda
+
+
+def _cold_segments(qlen, k, thr):
+    """A lane's K query segments as the segmented walk's first pass walks
+    them (``andix``'s ``chain.segmented.plan_segments``, empty ones
+    dropped): (end, entry) pairs, the first from the lane's start and the
+    rest cold, with no anchor within the threshold's reach."""
+    step = -(-qlen // k) if qlen > 0 else 1
+    out = []
+    for j in range(k):
+        start, end = min(j * step, qlen), min((j + 1) * step, qlen)
+        if end > start:
+            qend = start - thr - 2
+            out.append((end, (0, 0, 0, 0) if j == 0
+                        else (start, qend, qend, 0)))
+    return out
 
 
 @pytest.fixture
@@ -132,10 +148,8 @@ def _family_lanes(device, k):
     arr = {n: [] for n in rd.LANE_FIELDS}
     for s in range(3):
         for g in range(q_len2d.shape[1]):
-            for j, (st, en) in enumerate(
-                    segmented.plan_segments(int(q_len2d[s, g]), k)):
-                entry = (0, 0, 0, 0) if j == 0 else segmented._entry_arrays(
-                    segmented._canon(st, -segmented.BIG, 0, int(thr[s])))
+            for en, entry in _cold_segments(int(q_len2d[s, g]), k,
+                                            int(thr[s])):
                 vals = (s, ctx.q_base_h[g], ctx.q_start_h[g], starts[s],
                         rs_lens[s], thr[s], en) + entry
                 for name, v in zip(rd.LANE_FIELDS, vals):
@@ -276,10 +290,8 @@ def _sx_group(device, k, cache_k):
         for g in range(3):
             if g == s:
                 continue
-            for j, (st, en) in enumerate(segmented.plan_segments(
-                    int(q_off[g + 1] - q_off[g]), k)):
-                entry = (0, 0, 0, 0) if j == 0 else segmented._entry_arrays(
-                    segmented._canon(st, -segmented.BIG, 0, thr))
+            for en, entry in _cold_segments(int(q_off[g + 1] - q_off[g]),
+                                            k, thr):
                 vals = (s, qw_base[g], subjects[s].len, thr, en) + entry
                 for name, v in zip(walk_sx.SX_LANE_FIELDS, vals):
                     arr[name].append(int(v))

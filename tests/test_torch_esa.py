@@ -279,7 +279,7 @@ def test_bucket_and_pad_symbols_equal_jax(rng):
 @pytest.mark.parametrize("module", [
     "runtime.py", "sequence.py", "fasta.py", "model.py", "output.py",
     "esa/joint.py", "esa/sa_numpy.py", "chain/events.py",
-    "chain/segmented.py", "chain/replay_py.py", "oracle.py",
+    "chain/replay_py.py", "oracle.py",
 ])
 def test_host_modules_are_verbatim_copies(module):
     """The device-free host modules are copies of andix's (andix imports

@@ -19,7 +19,7 @@ from andix.esa.backend_jax import JaxBackend
 from andix.runtime import Context as JContext
 from andix.sequence import Seq as JSeq
 from andix_torch import pipeline
-from andix_torch.chain import segdrive, segmented
+from andix_torch.chain import segdrive
 from andix_torch.runtime import Context
 from andix_torch.sequence import Seq
 
@@ -57,7 +57,7 @@ def joint_schedule(monkeypatch):
             monkeypatch.setenv("ANDIX_CHAIN_SEGMENTS", str(k))
         for name, val in patches.items():
             monkeypatch.setattr(jsegmented, name, val)
-            monkeypatch.setattr(segmented, name, val)
+            monkeypatch.setattr(segdrive, name, val)
         ref = jpipeline.calculate_matrix(
             [JSeq(d, nm) for nm, d in fam], JContext(), backend=JaxBackend(),
             block_syms=block_syms)

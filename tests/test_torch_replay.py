@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from andix import parallel as jparallel
 from andix import pipeline as jpipeline
 from andix.chain import replay_device as jrd
+from andix.chain import segmented as jsegmented
 from andix.esa import joint
 from andix.esa.backend_jax import JaxBackend, device_text
 from andix.runtime import Context as JContext, Model as JModel
@@ -180,10 +181,9 @@ def plain_runs(blocks):
 
 
 def _segments(lanes, k):
-    """Non-empty query segments of every lane (segmented.plan_segments)."""
-    from andix_torch.chain import segmented
-
-    return sum(len(segmented.plan_segments(int(q), k))
+    """Non-empty query segments of every lane (andix's
+    ``chain.segmented.plan_segments``)."""
+    return sum(len(jsegmented.plan_segments(int(q), k))
                for q in lanes["q_len"].reshape(-1).tolist() if q > 0)
 
 

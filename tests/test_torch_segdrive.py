@@ -1,6 +1,7 @@
-"""The compiled segmented walk driver (``chain.segdrive``, its host code in
-``csrc/segdrive.cpp``) against the verbatim one (``chain.segmented``, a
-copy of ``andix``'s), on the CPU twins of both walk kernels: the joint
+"""The port's segmented walk driver (``chain.segdrive``, its host code in
+``csrc/segdrive.cpp``) against ``andix``'s (``andix.chain.segmented``,
+imported here only as the oracle), on the CPU twins of both walk
+kernels: the joint
 schedule's ``chain_walk_flat`` with its events fetched raw (each
 dispatch's lanes interleaved in buffer order) and the subject schedule's
 ``chain_walk_flat_sx`` with its events fetched packed (lane-major).  Both
@@ -16,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from andix.chain import segmented as jsegmented
 from andix_torch import spans
 from andix_torch import subject_pipeline as sxp
-from andix_torch.chain import segdrive, segmented
+from andix_torch.chain import segdrive
 from andix_torch.chain.replay_device import (LANE_FIELDS,
                                              chain_walk_flat_cpu_twin,
                                              fetch_walk, group_subject_tables)
@@ -182,7 +184,8 @@ def _assert_same(a, b):
 
 
 def _both(walk, args, k, ecap=ECAP, **kw):
-    py = _drive(segmented.segmented_group_anchors, walk, args, k, ecap, **kw)
+    py = _drive(jsegmented.segmented_group_anchors, walk, args, k, ecap,
+                **kw)
     cc = _drive(segdrive.segmented_group_anchors, walk, args, k, ecap, **kw)
     _assert_same(py, cc)
     return py
@@ -190,9 +193,11 @@ def _both(walk, args, k, ecap=ECAP, **kw):
 
 @pytest.fixture
 def patched(monkeypatch):
+    """Set driver parameters on both drivers alike."""
     def patch(**values):
         for name, value in values.items():
-            monkeypatch.setattr(segmented, name, value)
+            monkeypatch.setattr(segdrive, name, value)
+            monkeypatch.setattr(jsegmented, name, value)
     return patch
 
 
@@ -200,7 +205,25 @@ def test_the_library_builds():
     assert segdrive.available()
 
 
-# (family, schedule, k, chain.segmented's values)
+# segdrive's parameter -> andix's name for it
+PARAMETERS = {"REPAIR_EVENTS": "REPAIR_EVENTS",
+              "MAX_EXTENSIONS": "MAX_EXTENSIONS",
+              "CHUNK_ITERS": "CHUNK_ITERS",
+              "CHUNK_ITERS_MAX": "CHUNK_ITERS_MAX",
+              "CHUNK_BUDGET_S": "CHUNK_BUDGET_S",
+              "NS_PER_LANE_ITER": "NS_PER_LANE_ITER",
+              "BIG": "BIG", "MIN_LANES": "_MIN_LANES"}
+
+
+def test_parameters_are_andix_s():
+    """The port's driver takes andix's parameters (its defaults: no
+    environment variable of andix's is set here), type and value."""
+    for ours, theirs in PARAMETERS.items():
+        mine, want = getattr(segdrive, ours), getattr(jsegmented, theirs)
+        assert type(mine) is type(want) and mine == want, ours
+
+
+# (family, schedule, k, the drivers' parameters)
 CASES = {
     "divergent-joint": ("divergent", "joint", 4, {}),
     "divergent-subject": ("divergent", "subject", 4, {}),
@@ -239,21 +262,20 @@ def test_same_calls_and_events(case, patched):
 def test_repairs_fall_back_to_the_rest_of_the_lane(schedule, patched,
                                                     monkeypatch):
     """At one repair event, repairs in the clonal family run out of
-    extensions without a merge and walk the rest of their lane: the
-    verbatim driver takes that path here, and the compiled one makes the
-    same calls."""
+    extensions without a merge and walk the rest of their lane: andix's
+    driver takes that path here, and the port's makes the same calls."""
     patched(REPAIR_EVENTS=1)
     made = []
-    attempt = segmented._Attempt
+    attempt = jsegmented._Attempt
 
     def recording(**kw):
         made.append(attempt(**kw))
         return made[-1]
 
-    monkeypatch.setattr(segmented, "_Attempt", recording)
+    monkeypatch.setattr(jsegmented, "_Attempt", recording)
     walk, args = _group("clonal", schedule)
     _both(walk, args, 8)
-    assert any(a.extensions > segmented.MAX_EXTENSIONS and a.end == 10000
+    assert any(a.extensions > jsegmented.MAX_EXTENSIONS and a.end == 10000
                for a in made)
 
 
@@ -305,10 +327,10 @@ def test_resolve_that_does_not_converge(schedule, patched, capsys):
 def test_exception_in_the_walk_propagates(fail_at, patched):
     """The callback's exception (as ``_Stalled``) leaves the driver, in
     pass 1, pass 2 or a resolve round; the next call walks the group as
-    the verbatim driver does."""
+    andix's driver does."""
     patched(REPAIR_EVENTS=1)
     walk, args = _group("clonal", "joint")
-    for driver in (segmented.segmented_group_anchors,
+    for driver in (jsegmented.segmented_group_anchors,
                    segdrive.segmented_group_anchors):
         with pytest.raises(_Boom):
             _drive(driver, walk, args, 8, fail_at=fail_at)
@@ -329,12 +351,12 @@ def _request_counts(prof_file, monkeypatch, fn):
                  if name.startswith("walk.driver")}
 
 
-def test_counter_and_fallback(tmp_path, monkeypatch):
-    """The compiled driver counts ``walk.driver_native``; where its library
-    cannot be built (its source is missing), the verbatim driver walks the
-    group, with the same output, and counts ``walk.driver_python``."""
+def test_counter_and_build_failure(tmp_path, monkeypatch):
+    """The driver counts ``walk.driver_native`` once a group; where its
+    library cannot be built (its source is missing), the call raises with
+    the build's message and counts nothing."""
     walk, args = _group("divergent", "subject")
-    res, counts = _request_counts(
+    _, counts = _request_counts(
         tmp_path / "a.txt", monkeypatch,
         lambda: segdrive.segmented_group_anchors(walk, *args, 4, ECAP))
     assert counts == {"walk.driver_native": 1}
@@ -344,23 +366,23 @@ def test_counter_and_fallback(tmp_path, monkeypatch):
     monkeypatch.setattr(segdrive, "_lib", None)
     monkeypatch.setattr(segdrive, "_load_error", None)
     assert not segdrive.available()
-    called = []
-    verbatim = segmented.segmented_group_anchors
-    monkeypatch.setattr(segmented, "segmented_group_anchors",
-                        lambda *a: called.append(1) or verbatim(*a))
-    back, counts = _request_counts(
-        tmp_path / "b.txt", monkeypatch,
-        lambda: segdrive.segmented_group_anchors(walk, *args, 4, ECAP))
-    assert counts == {"walk.driver_python": 1} and called == [1]
-    for x, y in zip(res, back):
-        assert x.tobytes() == y.tobytes()
+    calls = []
+
+    def failing():
+        with pytest.raises(RuntimeError, match="did not build") as raised:
+            segdrive.segmented_group_anchors(_recording(walk, calls), *args,
+                                             4, ECAP)
+        return raised.value
+
+    err, counts = _request_counts(tmp_path / "b.txt", monkeypatch, failing)
+    assert "missing.cpp" in str(err) and calls == [] and counts == {}
 
 
 def test_drivers_in_threads(patched):
-    """Eight threads, each walking the group with the compiled driver at
-    once (a callback that replays the verbatim driver's dispatches), under
-    a short switch interval: every thread's calls and output are the
-    verbatim driver's."""
+    """Eight threads, each walking the group with the port's driver at
+    once (a callback that replays andix's driver's dispatches), under a
+    short switch interval: every thread's calls and output are andix's
+    driver's."""
     patched(REPAIR_EVENTS=2, CHUNK_ITERS=8, CHUNK_ITERS_MAX=64)
     walk, args = _group("divergent", "joint")
     outs = []
@@ -369,7 +391,7 @@ def test_drivers_in_threads(patched):
         outs.append(walk(arr, chunk_iters, maxev))
         return outs[-1]
 
-    want = _drive(segmented.segmented_group_anchors, keeping, args, 4)
+    want = _drive(jsegmented.segmented_group_anchors, keeping, args, 4)
 
     def replay():
         it = iter(outs)

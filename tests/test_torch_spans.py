@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from andix_torch import cli, parallel, spans
-from andix_torch.chain import segmented
+from andix_torch.chain import segdrive
 from andix_torch.esa import backend
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -241,8 +241,8 @@ def test_phase_file_lines(case, traced, tmp_path, monkeypatch):
         monkeypatch.setattr(backend, "level_budget",
                             lambda n, b: patch["budget"])
     if "chunk" in patch:
-        monkeypatch.setattr(segmented, "CHUNK_ITERS", patch["chunk"])
-        monkeypatch.setattr(segmented, "CHUNK_ITERS_MAX", patch["chunk"])
+        monkeypatch.setattr(segdrive, "CHUNK_ITERS", patch["chunk"])
+        monkeypatch.setattr(segdrive, "CHUNK_ITERS_MAX", patch["chunk"])
     paths = _family(tmp_path, clonal="clonal" in patch)
     monkeypatch.delenv("ANDIX_PROF_FILE")
     code, plain = _cli(paths)
@@ -278,4 +278,3 @@ def test_phase_file_lines(case, traced, tmp_path, monkeypatch):
     driven = [s["counts"].get("walk.driver_native", 0) for s in req["spans"]
               if s["name"] in ("joint.walk", "sx.walk")]
     assert sum(driven) == DRIVEN.get(case, 0), driven
-    assert not any("walk.driver_python" in s["counts"] for s in req["spans"])

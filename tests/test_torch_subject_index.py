@@ -32,7 +32,7 @@ from andix.esa.backend_jax import (
 from andix.runtime import Context as JContext, Model as JModel
 from andix.sequence import Seq, subject_init
 from andix_torch import pipeline, subject_pipeline
-from andix_torch.chain import segdrive, segmented
+from andix_torch.chain import segdrive
 from andix_torch.esa import backend
 from andix_torch.esa import subject_index as si
 from andix_torch.runtime import Context, Model
@@ -326,8 +326,8 @@ def test_nonconvergence_goes_to_the_joint_schedule(jax_grids, driver_calls,
     fall-back, no merge): the group walks at one event cap only (a wider
     buffer would walk the same way) and its rows go to the joint
     schedule, with the same matrix."""
-    monkeypatch.setattr(segmented, "REPAIR_EVENTS", 1)
-    monkeypatch.setattr(segmented, "MAX_EXTENSIONS", 10**9)
+    monkeypatch.setattr(segdrive, "REPAIR_EVENTS", 1)
+    monkeypatch.setattr(segdrive, "MAX_EXTENSIONS", 10**9)
     monkeypatch.setattr(segdrive, "segmented_group_anchors",
                         _without_merges(segdrive.segmented_group_anchors))
     got = _grids("event_cap_8", env={"ANDIX_CHAIN_SEGMENTS": 4})
@@ -343,8 +343,8 @@ def test_stalled_walk_goes_to_the_joint_schedule(jax_grids, driver_calls,
     more, so the driver would repeat a dispatch unchanged forever (as
     andix's does); the group goes to the joint schedule after the first
     repeat, with andix's matrix."""
-    monkeypatch.setattr(segmented, "CHUNK_ITERS", 64)
-    monkeypatch.setattr(segmented, "CHUNK_ITERS_MAX", 64)
+    monkeypatch.setattr(segdrive, "CHUNK_ITERS", 64)
+    monkeypatch.setattr(segdrive, "CHUNK_ITERS_MAX", 64)
     assert _equal(_grids("clonal"), jax_grids["clonal"])
     assert driver_calls["blocks"] == [[0, 1, 2]]
     assert len(driver_calls["sx"]) == 1

@@ -28,7 +28,7 @@ from andix.esa.backend_jax import JaxBackend
 from andix.runtime import Context as JContext
 from andix.sequence import Seq, subject_init
 from andix_torch import pipeline
-from andix_torch.chain import segmented, walk_sx
+from andix_torch.chain import segdrive, walk_sx
 from andix_torch.runtime import Context
 from andix_torch.sequence import Seq as TSeq
 
@@ -541,7 +541,7 @@ def _subject_grids(fam, env, chunk=None, jax=False):
         for k, v in env.items():
             m.setenv(k, str(v))
         if chunk is not None:
-            m.setattr(jsegmented if jax else segmented, "CHUNK_ITERS", chunk)
+            m.setattr(jsegmented if jax else segdrive, "CHUNK_ITERS", chunk)
         if jax:
             M = jpipeline.calculate_matrix(
                 [Seq(d, nm) for nm, d in fam], JContext(),

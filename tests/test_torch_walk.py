@@ -24,7 +24,7 @@ from andix.runtime import Context
 from andix.sequence import Seq, subject_init
 from andix_torch import pipeline as tpipeline
 from andix_torch.chain import replay_device as rd
-from andix_torch.chain import segdrive, segmented
+from andix_torch.chain import segdrive
 from andix_torch.esa import joint as tjoint
 from andix_torch.esa.backend import BlockContext, TorchBackend
 from andix_torch.runtime import Context as TContext
@@ -532,7 +532,7 @@ def test_cap_between_a_dispatch_and_the_group_takes_the_replay(
     port, with the same grid (a segmented driver at K = 1 would finish on
     the events path)."""
     jctx, mlun, ps, ctx, geo = block
-    monkeypatch.setattr(segmented, "CHUNK_ITERS", 4)
+    monkeypatch.setattr(segdrive, "CHUNK_ITERS", 4)
     per_dispatch = []
     mlun_t, ps_t = (torch.from_numpy(np.array(x)) for x in (mlun, ps))
 
