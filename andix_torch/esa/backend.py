@@ -245,16 +245,8 @@ class TorchBackend:
         with spans.span("joint.upload", dev) as up:
             padded_n = bucket(layout.n)
             nseg = len(layout.genome_ids)
-            with spans.span("joint.text"):
-                u8 = torch.from_numpy(layout.u8)
-                ends = layout.seg_start[1:] - 1
-            text = spans.upload(u8, dev)
-            sym, zeros = ingest.block_text(text, spans.upload(ends, dev),
-                                           padded_n)
-            zeros, stray = (int(z) for z in spans.readback(zeros))
-            if stray or zeros != nseg:
-                raise ValueError(f"block text: {zeros} zero bytes for {nseg} "
-                                 "separators (a real symbol is 0)")
+            sym, text = ingest.device_text(layout, padded_n, dev,
+                                           "joint.text")
             up.set(padded=padded_n)
 
         lcp_span = spans.NULL

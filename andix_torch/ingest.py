@@ -1,5 +1,5 @@
 """Genome texts made on the card: the CLI's FASTA read where the backend
-is a card, and the joint block's text.
+is a card, the joint block's text and each subject index's text.
 
 ``read`` takes every named regular file that starts with ``>`` on the
 card (``card``: the backend resolves to a card and the run is not in join
@@ -27,10 +27,12 @@ refused file is used.  The files of each path are counted
 
 ``block_layout`` is ``joint.build_block``'s layout without its zeroed
 copy: a view of the RS buffer where the block's subjects lie back to back
-there (the whole family in one block), else one copy into pinned memory;
+there (the whole family in one block, or one subject of a subject index,
+``subject_pipeline._index_text``), else one copy into pinned memory;
 ``block_text`` widens a block's uint8 text on its device to
 ``backend.pad_symbols(layout.sym, padded_n)`` (``csrc/ingest.cu``'s
-``block_text_kernel``).
+``block_text_kernel``), and ``device_text`` uploads a layout's text and
+widens and checks it there.
 
 Each kernel has its plain PyTorch version here (the CPU's route) and its
 host twin (``csrc/ingest_cpu.cpp``); ``tests/test_torch_ingest.py`` holds
@@ -468,6 +470,27 @@ def block_text_plain(text: torch.Tensor, ends: torch.Tensor,
     zeros = (text == 0).sum()
     counts = torch.stack([zeros, zeros - (text[ends] == 0).sum()])
     return sym, counts.to(torch.int32)
+
+
+def device_text(layout: BlockLayout, padded_n: int, device, span: str):
+    """(sym, text) on ``device``: the int32 [padded_n] symbols
+    ``backend.pad_symbols(layout.sym, padded_n)`` and the layout's uint8
+    text they were widened from.  The text and its separators' ends are
+    uploaded (``span`` names the host side), widened by ``block_text``,
+    and the zero counts read back: every 0 byte must be a separator.  The
+    joint block (``backend.prepare_block``) and each subject index
+    (``subject_pipeline._index_text``) take this route."""
+    with spans.span(span):
+        u8 = torch.from_numpy(layout.u8)
+        ends = layout.seg_start[1:] - 1
+    text = spans.upload(u8, device)
+    sym, zeros = block_text(text, spans.upload(ends, device), padded_n)
+    zeros, stray = (int(z) for z in spans.readback(zeros))
+    nseg = len(layout.genome_ids)
+    if stray or zeros != nseg:
+        raise ValueError(f"block text: {zeros} zero bytes for {nseg} "
+                         "separators (a real symbol is 0)")
+    return sym, text
 
 
 def block_text_cpu_twin(text: torch.Tensor, ends: torch.Tensor,

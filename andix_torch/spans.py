@@ -99,12 +99,14 @@ LABELS = {
 # host spans: every file's parse and normalize, the subjects' set-up, the
 # padded texts, the subject schedule's plan, one segmented-driver
 # dispatch, one worker thread; the FASTA read's counters of files read
-# on the card and on the host; and the walk's counter of groups walked
-# by the segmented driver
+# on the card and on the host; the walk's counter of groups walked by
+# the segmented driver; and the subject indexes' counters of texts made
+# on the device and on the host
 NAMES = frozenset(LABELS) | {"fasta.read", "subjects", "joint.text",
                              "sx.text", "sx.plan", "walk.dispatch", "worker",
                              "ingest.device_files", "ingest.host_files",
-                             "walk.driver_native"}
+                             "walk.driver_native", "sx.text_device",
+                             "sx.text_host"}
 
 REQUESTS: collections.deque = collections.deque(maxlen=64)
 
@@ -272,14 +274,15 @@ def count(name: str, n: int = 1) -> None:
             req.counts[name] = req.counts.get(name, 0) + int(n)
 
 
-def upload(a, device) -> torch.Tensor:
-    """``a`` (a numpy array or a host tensor) on ``device``; counts the
-    bytes and the host nanoseconds of a copy to a card."""
+def upload(a, device, out: torch.Tensor | None = None) -> torch.Tensor:
+    """``a`` (a numpy array or a host tensor) on ``device`` (copied into
+    ``out``, a tensor of its shape and type there, where given); counts
+    the bytes and the host nanoseconds of a copy to a card."""
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
     if _req is None:
-        return t.to(device)
+        return t.to(device) if out is None else out.copy_(t)
     t0 = _clock()
-    out = t.to(device)
+    out = t.to(device) if out is None else out.copy_(t)
     if out.device.type != "cpu":
         count("upload_ns", _clock() - t0)
         count("h2d_bytes", t.nbytes)

@@ -51,7 +51,7 @@ import threading
 import numpy as np
 import torch
 
-from . import _distributed, parallel, spans
+from . import _distributed, ingest, parallel, spans
 from .chain import events as chain_events
 from .chain import evpack, segdrive
 from .chain.replay_device import fetch_walk
@@ -155,7 +155,9 @@ def _build_group_index(group, subjects, cache_k: int, device, budget: int,
     less what the group's stacked index holds) allows, where ``andix``
     keeps at most 14 for a TPU's memory; the overflow flags are read once
     for the group, and an overflowed subject's LCP is then taken on the
-    host (``backend.host_lcp``)."""
+    host (``backend.host_lcp``).  Each index text is made on ``device``
+    (``_index_text``, counted in ``sx.text_device``); the host LCP's
+    padded int32 text is made on the host (``sx.text_host``)."""
     rows = -(-len(group) // 8) * 8
     lp = max(index_length(subjects[i]) for i in group)
     salcp = torch.zeros((rows, 2, lp), dtype=torch.int32, device=device)
@@ -168,15 +170,10 @@ def _build_group_index(group, subjects, cache_k: int, device, budget: int,
     max_levels = max(1, backend.level_budget(lp, budget - held))
     ovf_flags = []
     for k, i in enumerate(group):
-        layout = joint.build_block({i: subjects[i].rs}, {})
-        nreal[k] = layout.n
-        with spans.span("sx.text"):
-            padded = pad_symbols(layout.sym, lp)
-        sym = spans.upload(padded, device)
-        del padded
+        sym, n = _index_text(subjects[i].rs, lp, device)
+        nreal[k] = n
         sa, lcp, ovf, words, cache = subject_index.build_subject_index(
-            sym, layout.n, cache_k, backend.alphabet_ok(sym, layout.n),
-            max_levels)
+            sym, n, cache_k, backend.alphabet_ok(sym, n), max_levels)
         salcp[k, 0] = sa
         salcp[k, 1] = lcp
         sw[k] = words
@@ -189,9 +186,23 @@ def _build_group_index(group, subjects, cache_k: int, device, budget: int,
         layout = joint.build_block({group[k]: subjects[group[k]].rs}, {})
         with spans.span("sx.text"):
             padded = pad_symbols(layout.sym, lp)
+        spans.count("sx.text_host")
         salcp[k, 1] = backend.host_lcp(padded, salcp[k, 0], threads)
     return (salcp, sw, cache2, spans.upload(nreal, device),
             int(overflowed.sum()))
+
+
+def _index_text(rs, lp: int, device) -> tuple[torch.Tensor, int]:
+    """(int32 [lp] symbols on ``device``, real symbols n) of a subject's
+    index text, ``pad_symbols(joint.build_block({i: rs}, {}).sym, lp)``,
+    made as the joint block's text is (``ingest.device_text``) from a view
+    of the pinned buffer the ingest read the RS into, else one copy
+    (``ingest.block_layout``).  Only the int32 text stays on the device."""
+    with spans.span("sx.text"):
+        layout = ingest.block_layout({0: rs}, {}, device)
+    sym, _ = ingest.device_text(layout, lp, device, "sx.text")
+    spans.count("sx.text_device")
+    return sym, layout.n
 
 
 # the lane count that the segment count K aims a dispatch at
@@ -292,7 +303,7 @@ def process_subject_index(todo: list[int], seqs, subjects, ctx: Context, M,
     def work(w: int) -> None:
         device = devices[w]
         with spans.span("sx.query_words", device):
-            qw = _pack_query_words(raw_blob, q_off, n, device)
+            qw = _pack_query_words(seqs, qw_base, device)
         for group in groups[w::n_workers]:
             events = _process_group(group, qw, subjects, ctx, M, meter, ckpt,
                                     cache_k, ecap, n, gp, q_len_row,
@@ -329,17 +340,21 @@ def _host_query_blob(seqs, n):
     return raw, q_off, qw_base
 
 
-def _pack_query_words(raw_blob, q_off, n, device) -> torch.Tensor:
+def _pack_query_words(seqs, qw_base, device) -> torch.Tensor:
     """Sentinel-injected packed query words on ``device``: each query is
-    followed by one sentinel (code 0), and the blob by at least 16 more."""
-    parts = []
+    followed by one sentinel (code 0), and the blob by at least 16 more.
+    The blob is zeroed on the device and each query's bytes (views of the
+    ingest's pinned buffer where it read them) copied to its slice at
+    ``qw_base``."""
+    n = len(qw_base)
+    size = int(qw_base[-1]) + len(seqs[n - 1].data) + 1 if n else 0
+    size += (-size) % 16 + 16
+    blob = torch.zeros(size, dtype=torch.uint8, device=device)
     for g in range(n):
-        parts.append(raw_blob[q_off[g]: q_off[g + 1]])
-        parts.append(np.zeros(1, np.uint8))
-    blob2 = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
-    pad = (-len(blob2)) % 16 + 16
-    blob2 = np.concatenate([blob2, np.zeros(pad, np.uint8)])
-    return subject_index.pack_words_u8(spans.upload(blob2, device))
+        a = int(qw_base[g])
+        spans.upload(np.asarray(seqs[g].data, dtype=np.uint8), device,
+                     out=blob[a: a + len(seqs[g].data)])
+    return subject_index.pack_words_u8(blob)
 
 
 def _fetch_events(ev4, cnt: int, lb: int, ecap: int) -> np.ndarray:

@@ -463,7 +463,7 @@ def _sx_walk_setup(dev, n_genomes, length, seed):
         list(range(n)), subjects, cache_k, dev, pipeline.memory_budget(dev),
         0)
     raw, q_off, qw_base = sp._host_query_blob(seqs, n)
-    qw = sp._pack_query_words(raw, q_off, n, dev)
+    qw = sp._pack_query_words(seqs, qw_base, dev)
     q_len = q_off[1:] - q_off[:-1]
     k = sp._chain_segments(int(q_len.max()), n * (n - 1))
     arr = {name: [] for name in walk_sx.SX_LANE_FIELDS}

@@ -283,7 +283,7 @@ def _sx_group(device, k, cache_k):
     salcp, sw, cache2, nreal, _ = subject_pipeline._build_group_index(
         [0, 1, 2], subjects, cache_k, device, 1 << 34, 0)
     raw, q_off, qw_base = subject_pipeline._host_query_blob(seqs, 3)
-    qw = subject_pipeline._pack_query_words(raw, q_off, 3, device)
+    qw = subject_pipeline._pack_query_words(seqs, qw_base, device)
     arr = {n: [] for n in walk_sx.SX_LANE_FIELDS}
     for s in range(3):
         thr = int(subjects[s].threshold)
@@ -1237,6 +1237,47 @@ def test_block_text_kernel_counts_a_stray_zero(cuda):
     assert counts.tolist() == [3, 1]
     assert counts.tolist() == ingest.block_text_plain(text, ends,
                                                       64)[1].tolist()
+
+
+@pytest.mark.parametrize("lengths", [[50_000, 70_001, 33_333],
+                                     [20_000 + k for k in range(9)]])
+def test_subject_index_texts_on_the_card_equal_the_cpu(cuda, tmp_path,
+                                                       lengths):
+    """The subject schedule's group index and packed query words with
+    every text made on the card, from subjects ``ingest.read`` read there
+    (views of its pinned RS buffer), against the CPU's route on the same
+    subjects: every tensor equal, one ``block_text`` launch a subject."""
+    import contextlib
+    import io
+
+    from andix_torch.runtime import Context
+
+    rng = np.random.default_rng(23)
+    paths = []
+    for k, n in enumerate(lengths):
+        p = tmp_path / f"s{k}.fa"
+        p.write_bytes(_wrapped(f"s{k}", NUCL[rng.integers(0, 4, n)]))
+        paths.append(str(p))
+    with contextlib.redirect_stderr(io.StringIO()):
+        seqs = ingest.read(paths, Context(), cuda)
+    subjects = [ingest.subject(s, 0.025) for s in seqs]
+    assert np.shares_memory(
+        ingest.block_layout({0: subjects[0].rs}, {}, cuda).u8,
+        subjects[0].rs)
+    group, cpu = list(range(len(seqs))), torch.device("cpu")
+    before = kernels.launches["block_text"]
+    got = subject_pipeline._build_group_index(group, subjects, 6, cuda,
+                                              1 << 34, 0)
+    assert kernels.launches["block_text"] == before + len(group)
+    want = subject_pipeline._build_group_index(group, subjects, 6, cpu,
+                                               1 << 34, 0)
+    for a, b in zip(got[:4], want[:4]):
+        assert a.device == cuda and torch.equal(a.cpu(), b)
+    assert got[4] == want[4] == 0
+    _, _, qw_base = subject_pipeline._host_query_blob(seqs, len(seqs))
+    qw = subject_pipeline._pack_query_words(seqs, qw_base, cuda)
+    assert torch.equal(qw.cpu(), subject_pipeline._pack_query_words(
+        seqs, qw_base, cpu))
 
 
 def test_cli_reads_on_the_card_and_prints_the_host_bytes(cuda, tmp_path,

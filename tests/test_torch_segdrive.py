@@ -98,7 +98,7 @@ def _subject_group(seqs, ecap):
     subjects = [subject_init(s, 0.025) for s in seqs]
     n = len(seqs)
     raw, q_off, qw_base = sxp._host_query_blob(seqs, n)
-    qw = sxp._pack_query_words(raw, q_off, n, CPU)
+    qw = sxp._pack_query_words(seqs, qw_base, CPU)
     cache_k = 3
     salcp, sw, cache2, nreal, _ = sxp._build_group_index(
         list(range(n)), subjects, cache_k, CPU, 1 << 30, 0)
