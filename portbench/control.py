@@ -2,9 +2,10 @@
 
     python3 portbench/control.py --workload <cell> --seeds 1,2,3
 
-For each seed, the cell's family as a run makes it; the plain reference
-computes its counts, distances and matrix, and the comparison of
-``run.compare`` reads each of these in the program's place:
+For each seed, the cell's family as a run makes it, read as a run's
+reference reads it (in join mode, the files as andi joins them); the
+plain reference computes its counts, distances and matrix, and the
+comparison of ``run.compare`` reads each of these in the program's place:
 
 * ``float32``: the control, the reference's estimate in float32, the
   precision below the float64 the configuration states.  It has to fail
@@ -25,6 +26,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,9 +49,12 @@ def readings(cell_name: str, seed: int, device: str, root: str = ROOT) -> dict:
                                          cell["traffic"] + ".json"))
     seqs = family.make_family(config["genomes"], config["length"],
                               traffic["rates"], seed)
-    names = [n for n, _ in seqs]
+    with tempfile.TemporaryDirectory(prefix="portbench-control-") as tmp:
+        paths = (run.write_files(config, seqs, seed, tmp)
+                 if config.get("join") else [])
+        names, genomes = run.reference_input(config, seqs, paths)
     t0 = time.perf_counter()
-    ref = andi.Reference([d for _, d in seqs], config["p_value"], device)
+    ref = andi.Reference(genomes, config["p_value"], device)
     counts, seq_len = ref.counts()
     ref_s = time.perf_counter() - t0
     dist = andi.distances(counts)

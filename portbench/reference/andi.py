@@ -5,6 +5,15 @@ test: it imports nothing of it and takes only the genomes' bytes.  The
 statistics of the anchor length (``min_anchor_length`` and its helpers)
 are frozen copies of andi's formulas, ``src/sequence.c:196-373``.
 
+A genome is ACGT, or in join mode (``-j``, ``read_join``) a file's
+records joined with '!' (``dsa_join``, ``src/sequence.c:78-125``).  The
+joiners count in the genome's length, its G+C share's denominator and its
+anchor threshold, as andi's do; ``revcomp`` turns each into ';'
+(``src/sequence.c:143-166``).  '!' and ';' are symbols of the text like
+any other, each one code for every genome, so a query's '!' extends a
+match through a subject's '!' as andi's byte comparison does; the counts
+skip them in the gaps as ``model_count`` skips every byte below 'A'.
+
 What it computes, for every ordered pair (subject i, query j), i != j:
 
 * the subject string ``RS_i = revcomp(g_i) + '#' + g_i`` and andi's
@@ -38,14 +47,24 @@ breaks andi's use of both strands; the benchmark's control uses it.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 
-# A C G T as 0 1 2 3; every separator has a code of its own from 4 up
+# A C G T as 0 1 2 3, andi's contig joiner '!' as 4 and its reverse
+# complement ';' as 5; every other separator has a code of its own from 6 up
 _CODE = np.full(256, 255, dtype=np.uint8)
-for _i, _b in enumerate(b"ACGT"):
+for _i, _b in enumerate(b"ACGT!"):
     _CODE[_b] = _i
+JOINER = 4
+_REVCOMP = np.array([3, 2, 1, 0, 5], dtype=np.uint8)  # by code: T G C A ;
+# what andi's ``normalize`` keeps of a record's bytes (src/sequence.c:260-282)
+_KEEP = np.zeros(256, dtype=np.uint8)
+for _b in b"ACGT!":
+    _KEEP[_b] = _b
+for _lo, _up in zip(b"acgt", b"ACGT"):
+    _KEEP[_lo] = _up
 SNP_CELLS = [1, 2, 3, 4, 6, 7, 8, 9, 11, 12, 13, 14]
 
 
@@ -91,14 +110,15 @@ class JointText:
     def __init__(self, genomes: list[np.ndarray], device: torch.device):
         self.device = device
         self.lens = [len(g) for g in genomes]
-        parts, off, sep = [], [], 4
+        parts, off, sep = [], [], 6
         pos = 0
         for g in genomes:
             code = _CODE[g]
-            if (code > 3).any():
-                raise ValueError("the reference takes ACGT genomes only")
+            if (code > JOINER).any():
+                raise ValueError("the reference takes genomes of ACGT and "
+                                 "andi's contig joiner '!' only")
             off.append(pos)
-            parts += [(3 - code)[::-1], np.array([sep], np.uint8), code,
+            parts += [_REVCOMP[code][::-1], np.array([sep], np.uint8), code,
                       np.array([sep + 1], np.uint8)]
             sep += 2
             pos += 2 * len(g) + 2
@@ -438,8 +458,26 @@ def _counts(jt, pp: _Pairs, pair, q, s, length) -> torch.Tensor:
     return counts.view(n_pairs, 16)
 
 
+def read_join(path: str) -> tuple[str, np.ndarray]:
+    """A FASTA file read as andi's join mode reads it (``read_fasta_join``,
+    ``src/io.c:159-189``): each record normalized (ACGT and '!' kept, acgt
+    upper-cased, every other byte dropped), the records joined in file
+    order with '!', the genome named after the file's basename cut at its
+    first '.'."""
+    with open(path, "rb") as f:
+        text = f.read()
+    records = []
+    for chunk in text.split(b"\n>"):
+        lines = chunk.lstrip(b">").split(b"\n")
+        kept = _KEEP[np.frombuffer(b"".join(lines[1:]), dtype=np.uint8)]
+        records.append(kept[kept != 0].tobytes())
+    name = os.path.basename(path).split(".", 1)[0]
+    return name, np.frombuffer(b"!".join(records), dtype=np.uint8)
+
+
 class Reference:
-    """andi's ``-m JC`` counts for a family of genomes (ACGT bytes).
+    """andi's ``-m JC`` counts for a family of genomes (ACGT bytes, and
+    '!' where a genome joins contigs).
 
     The pairs are walked a block of subjects at a time, each block's match
     statistics freed before the next: ``block`` subjects, or by default as

@@ -26,6 +26,20 @@ distances lie within ``distance_gap``'s limit of the reference's float64
 ones, and each matrix took the configuration's schedule.  The numbers compared are printed,
 each with its limit, as the last lines on standard error and under the
 result's last key.  The last line on standard output is the result.
+
+Two keys of a configuration change the files and the call; without them
+a run is as described.  ``"assembly": {"contigs", "min_contig",
+"reverse_share", "order": "longest_first"}`` writes each genome as a
+draft assembly (``family.write_assembly``): its contigs, some
+reverse-complemented, longest first, in the genome's one file.
+``"join": true`` adds ``-j``, andi's join mode: the argv is
+``["--backend", "cuda", "--progress=never", "-m", "JC", "-j", *fasta]``,
+and the reference reads each file as andi does (``andi.read_join``: the
+records joined in file order with '!', the genome named after the file).
+A run refuses, before anything is timed, with a message and no result, a
+configuration it cannot check: a ``model`` other than ``JC`` (the
+reference estimates JC alone), and ``assembly`` without ``join`` (each
+contig would be a taxon of its own).
 """
 
 from __future__ import annotations
@@ -115,6 +129,40 @@ class Matrix(NamedTuple):
     launches: dict
 
 
+def refusal(config: dict) -> str | None:
+    """Why a run cannot check this configuration, or None."""
+    if config["model"] != "JC":
+        return (f"model {config['model']!r}: the reference estimates JC "
+                "alone")
+    if "assembly" in config and not config.get("join"):
+        return ("assembly without join: each contig would be a taxon of "
+                "its own")
+    return None
+
+
+def cli_options(config: dict) -> list[str]:
+    """What a matrix call passes between ``--progress=never`` and the
+    files."""
+    return ["-m", config["model"]] + (["-j"] if config.get("join") else [])
+
+
+def write_files(config: dict, seqs, seed: int, directory: str) -> list[str]:
+    """The family's files: one record a genome, or each genome's draft
+    assembly where the configuration has one."""
+    if "assembly" in config:
+        return family.write_assembly(directory, seqs, config["assembly"],
+                                     seed)
+    return family.write_fasta(directory, seqs)
+
+
+def reference_input(config: dict, seqs, paths: list[str]):
+    """The names and genomes the reference takes: the family's, or in join
+    mode each file as andi reads it."""
+    if config.get("join"):
+        seqs = [andi.read_join(p) for p in paths]
+    return [n for n, _ in seqs], [d for _, d in seqs]
+
+
 def forbidden_modules() -> list[str]:
     return sorted({name for name in list(sys.modules)
                    if name.split(".", 1)[0] in FORBIDDEN})
@@ -159,7 +207,7 @@ class Program:
         self.estimates.append(d)
         return d
 
-    def matrix(self, paths: list[str], model: str) -> Matrix:
+    def matrix(self, paths: list[str], options: list[str]) -> Matrix:
         self.kernels.reset_launches()
         self.pipeline.calculate_matrix = self._recording
         self.model.estimate = self._estimating
@@ -169,8 +217,7 @@ class Program:
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 code = self.cli.main(["--backend", self.backend,
-                                      "--progress=never", "-m", model]
-                                     + paths)
+                                      "--progress=never", *options, *paths])
             if self.cuda:
                 torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -268,6 +315,11 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
     cfg_entry = next(c for c in bench["configs"]
                      if c["name"] == cell["config"])
     config = load_json(os.path.join(root, cfg_entry["file"]))
+    why_not = refusal(config)
+    if why_not:
+        print(f"portbench: {cell_name} cannot be checked: {why_not}",
+              file=sys.stderr)
+        return 2
     traffic = load_json(os.path.join(root, "portbench", "traffic",
                                      cell["traffic"] + ".json"))
     metrics = [(m, load_metric(root, m["name"]))
@@ -279,15 +331,15 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
         seqs = family.make_family(config["genomes"], config["length"],
                                   traffic["rates"], seed)
         marks.append(("family", time.time() - T_START))
-        paths = family.write_fasta(tmp, seqs)
+        paths = write_files(config, seqs, seed, tmp)
         marks.append(("fasta", time.time() - T_START))
         prog = Program(root, backend)
         marks.append(("program and libraries", time.time() - T_START))
-        model = config["model"]
+        options = cli_options(config)
         record = {"cell": cell, "config": config, "traffic": traffic,
                   "hbm_bytes_per_s": HBM_BYTES_PER_S,
                   "card": card_info() if cuda else None}
-        cold = prog.matrix(paths, model)
+        cold = prog.matrix(paths, options)
         record["cold_matrix_s"] = cold.seconds
         cards = torch.cuda.device_count() if cuda else 0
         for d in range(cards):
@@ -300,7 +352,7 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
         busy_s = window_s = None
         if not trace_on:
             while not window or time.perf_counter() < end:
-                window.append(prog.matrix(paths, model))
+                window.append(prog.matrix(paths, options))
             record["window"] = {"seconds": time.perf_counter() - t_window,
                                 "completed": len(window)}
         else:
@@ -316,7 +368,7 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
                     while not starts or time.perf_counter() < half:
                         starts.append(time.perf_counter() * 1e6)
                         with torch.profiler.record_function(trace.MARK):
-                            window.append(prog.matrix(paths, model))
+                            window.append(prog.matrix(paths, options))
             finally:
                 sampler.stop()
             record["profile"] = trace.read_profile(prof, starts,
@@ -334,7 +386,7 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
                 open(prof_file, "w").close()
                 os.environ["ANDIX_PROF_FILE"] = prof_file
                 try:
-                    mat = prog.matrix(paths, model)
+                    mat = prog.matrix(paths, options)
                 finally:
                     del os.environ["ANDIX_PROF_FILE"]
                 with open(prof_file) as f:
@@ -363,14 +415,19 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
             if v is not None:
                 values[m["name"]] = {"value": float(v), "unit": m["unit"]}
 
+        for d in range(cards):
+            torch.cuda.reset_peak_memory_stats(d)
         t_ref = time.perf_counter()
-        ref = andi.Reference([d for _, d in seqs], config["p_value"],
+        names, genomes = reference_input(config, seqs, paths)
+        ref = andi.Reference(genomes, config["p_value"],
                              "cuda" if cuda else "cpu")
         counts, seq_len = ref.counts()
         dist = andi.distances(counts)
-        text, code = andi.phylip([name for name, _ in seqs], counts, seq_len)
-        del ref
+        text, code = andi.phylip(names, counts, seq_len)
+        del ref, genomes
         ref_s = time.perf_counter() - t_ref
+        ref_peak = max((torch.cuda.max_memory_allocated(d)
+                        for d in range(cards)), default=0)
         checks = compare(kept, counts, seq_len, dist, text, code)
         checks.update({
             "window_matrices_off": failed,
@@ -402,7 +459,8 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool,
                 "idle_gaps": [[label[:200], s] for label, s in idle]}
         print("set-up, seconds from process start: " + ", ".join(
             f"{k} {v:.3f}" for k, v in marks), file=sys.stderr)
-        print(f"reference: {ref_s:.3f} s; window: {attempted} matrices of "
+        print(f"reference: {ref_s:.3f} s, peak {ref_peak} B on the "
+              f"fullest card; window: {attempted} matrices of "
               + ", ".join(f"{w:.4f}" for w in record["window_walls"])
               + " s", file=sys.stderr)
         if cuda and record["card"].get("power_limit_w") is not None:
