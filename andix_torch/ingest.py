@@ -23,7 +23,8 @@ bytes up to the next header (the sequence).  Every other file, stdin, the
 CPU backend and join mode go to ``fasta.read_fasta``/``read_fasta_join``
 as they are, with their messages; nothing the card computed for a
 refused file is used.  The files of each path are counted
-(``ingest.device_files``, ``ingest.host_files``).
+(``ingest.device_files``, ``ingest.host_files``); each file joined in
+join mode is one ``ingest.join`` span (``_read_join``).
 
 ``block_layout`` is ``joint.build_block``'s layout without its zeroed
 copy: a view of the RS buffer where the block's subjects lie back to back
@@ -55,7 +56,8 @@ from . import _distributed, fasta, kernels, spans
 from .device import DeviceError, resolve_devices
 from .esa.joint import SEPARATOR_BASE, BlockLayout
 from .runtime import Context
-from .sequence import _REVCOMP, Seq, Subject, min_anchor_length, subject_init
+from .sequence import (_REVCOMP, BANG, Seq, Subject, min_anchor_length,
+                       subject_init)
 
 # raw bytes a launch reads at most, so that every count and position of
 # the record table fits an int32; a larger file goes to the host
@@ -76,9 +78,14 @@ class IngestSeq(Seq):
 
 def subject(seq: Seq, anchor_p_value: float) -> Subject:
     """``sequence.subject_init(seq, anchor_p_value)``, from the card's RS
-    and G+C count for an ``IngestSeq``."""
+    and G+C count for an ``IngestSeq``.  A subject the host makes is one
+    ``subjects.host`` span (``symbols``: its length) and one count of
+    ``subjects.host_rs``; one from the card counts ``subjects.device_rs``."""
     if not isinstance(seq, IngestSeq):
-        return subject_init(seq, anchor_p_value)
+        with spans.span("subjects.host", symbols=len(seq.data)):
+            spans.count("subjects.host_rs")
+            return subject_init(seq, anchor_p_value)
+    spans.count("subjects.device_rs")
     gc = seq.gc_count / len(seq.data)
     return Subject(rs=seq.rs, gc=gc, threshold=min_anchor_length(
         anchor_p_value, gc, len(seq.rs)))
@@ -120,9 +127,25 @@ def read(file_names: list[str], ctx: Context,
                                   gc_count=r.gc) for r in recs)
         else:
             spans.count("ingest.host_files")
-            seqs.extend((fasta.read_fasta_join if ctx.join
-                         else fasta.read_fasta)(name, ctx))
+            seqs.extend(_read_join(name, ctx) if ctx.join
+                        else fasta.read_fasta(name, ctx))
     return seqs
+
+
+def _read_join(name: str, ctx: Context) -> list[Seq]:
+    """``fasta.read_fasta_join(name, ctx)`` in one ``ingest.join`` span
+    with the file's ``records`` and the joined ``bytes``, counted in
+    ``join.records`` and ``join.joiners`` too.  The joiners are the
+    joined sequence's '!' bytes, one a record after the first where the
+    records hold none (nucleotide FASTA does not)."""
+    with spans.span("ingest.join") as sp:
+        got = fasta.read_fasta_join(name, ctx)
+        if sp and got:
+            joiners = int(np.count_nonzero(got[0].data == BANG))
+            sp.set(records=joiners + 1, bytes=len(got[0].data))
+            spans.count("join.records", joiners + 1)
+            spans.count("join.joiners", joiners)
+    return got
 
 
 @dataclasses.dataclass

@@ -278,3 +278,86 @@ def test_phase_file_lines(case, traced, tmp_path, monkeypatch):
     driven = [s["counts"].get("walk.driver_native", 0) for s in req["spans"]
               if s["name"] in ("joint.walk", "sx.walk")]
     assert sum(driven) == DRIVEN.get(case, 0), driven
+
+
+def _drafts(tmp_path, contigs=(1, 4, 7)):
+    """Three genomes of 6 kbp as draft assemblies, one file a genome with
+    ``contigs[k]`` records (``portbench.family.write_assembly``)."""
+    from portbench import family
+
+    seqs = family.make_family(len(contigs), 6000, [0.02, 0.04], 11)
+    paths = []
+    for k, (seq, c) in enumerate(zip(seqs, contigs)):
+        paths += family.write_assembly(
+            str(tmp_path), [seq], {"contigs": c, "min_contig": 300,
+                                   "reverse_share": 0.5,
+                                   "order": "longest_first"}, 11 + k)
+    return paths
+
+
+def _counted(req, name):
+    return (sum(s["counts"].get(name, 0) for s in req["spans"])
+            + req["counts"].get(name, 0))
+
+
+def test_join_opens_one_span_a_file_and_one_a_subject(traced, tmp_path,
+                                                      monkeypatch):
+    """Under ``-j`` each file's read is one ``ingest.join`` span inside
+    ``fasta.read``, its ``records`` the file's records and ``bytes`` the
+    joined length, and the records and joiners are counted; each genome's
+    subject, made on the host, is one ``subjects.host`` span inside
+    ``subjects``.  The matrix is the one printed with tracing off."""
+    paths = _drafts(tmp_path)
+    records = [open(p, "rb").read().count(b">") for p in paths]
+    assert records == [1, 4, 7]
+    monkeypatch.delenv("ANDIX_PROF_FILE")
+    plain = _cli(["-j"] + paths)
+    monkeypatch.setenv("ANDIX_PROF_FILE", str(traced))
+    assert _cli(["-j"] + paths) == plain and plain[0] == 0
+
+    req = spans.REQUESTS[-1]
+    by_name = {}
+    for s in req["spans"]:
+        by_name.setdefault(s["name"], []).append(s)
+    (read,), (subjects,) = by_name["fasta.read"], by_name["subjects"]
+    joins = by_name["ingest.join"]
+    assert [s["attrs"]["records"] for s in joins] == records
+    assert [s["attrs"]["bytes"] for s in joins] == [6000 + r - 1
+                                                    for r in records]
+    assert all(s["parent"] == read["id"] for s in joins)
+    assert _counted(req, "join.records") == 12
+    assert _counted(req, "join.joiners") == 9
+    hosts = by_name["subjects.host"]
+    assert [s["attrs"]["symbols"] for s in hosts] == [
+        6000 + r - 1 for r in records]
+    assert all(s["parent"] == subjects["id"] for s in hosts)
+    assert _counted(req, "subjects.host_rs") == 3
+    assert _counted(req, "subjects.device_rs") == 0
+
+
+def test_one_record_files_on_the_card_route_open_neither(traced, tmp_path,
+                                                         monkeypatch):
+    """One record a file, read on the card's route (its plain version
+    here): no ``ingest.join`` and no ``subjects.host`` span, and every
+    subject counted in ``subjects.device_rs``."""
+    from andix_torch import ingest
+
+    monkeypatch.setattr(ingest, "card", lambda ctx: torch.device("cpu"))
+    paths = _family(tmp_path)
+    assert _cli(paths)[0] == 0
+    req = spans.REQUESTS[-1]
+    names = {s["name"] for s in req["spans"]}
+    assert "fasta.read" in names and "subjects" in names
+    assert not names & {"ingest.join", "subjects.host"}
+    assert _counted(req, "subjects.device_rs") == 3
+    assert _counted(req, "subjects.host_rs") == 0
+    assert _counted(req, "ingest.device_files") == 3
+
+
+def test_the_join_and_subject_names_are_known():
+    """The new spans and counters are named in ``NAMES``, and none of
+    them is a phase with a line of its own."""
+    new = {"ingest.join", "subjects.host", "join.records", "join.joiners",
+           "subjects.host_rs", "subjects.device_rs"}
+    assert new <= spans.NAMES
+    assert not new & set(spans.LABELS)
