@@ -17,8 +17,9 @@ own ``chain.segmented``.
 
 On a card the CLI reads its FASTA files there (``ingest``: one upload of
 the files' bytes, one kernel launch that parses, normalizes and
-reverse-complements them); files it cannot prove exact, stdin, join mode
-and the CPU backend take ``fasta``'s parser.  Two schedules, picked by
+reverse-complements them, under ``-j`` joining each file's records);
+files it cannot prove exact, stdin and the CPU backend take ``fasta``'s
+parser.  Two schedules, picked by
 ``ANDIX_INDEX`` as in ``andix``:
 
 * joint (slice 1): CLI -> joint block -> SA/LCP -> matching statistics

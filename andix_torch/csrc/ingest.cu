@@ -25,6 +25,11 @@
 //   16 output bytes (one binary search over the record table, then a
 //   cursor that crosses record edges), stored 16 bytes at a time.  It reads the table
 //   and its totals on the card, so both launch back to back.
+// ingest_join_rs_kernel: in join mode (-j) in its place, each file's
+//   records joined by '!' as one RS, in the bytes its records' RS take
+//   otherwise (a thread 16 output bytes: binary searches for the file
+//   and the record of its first byte, then a cursor that steps records
+//   down on the reverse strand and up on the forward one).
 // block_text_kernel: the joint block's int32 symbols from its uint8 text,
 //   a thread 16 positions (one 16-byte load, four 16-byte stores); a 0
 //   byte looks its separator up in the sorted separator positions and
@@ -137,6 +142,18 @@ ingest_scan_kernel(const unsigned char* __restrict__ x, long long m,
     seq[tile_run.k + j] = s_out[j];
 }
 
+// the chunk's 16 RS bytes w (fewer at the end) to rs + o0
+__device__ __forceinline__ void ig_store_chunk(unsigned char* rs, long long o0,
+                                               long long total,
+                                               const unsigned* w) {
+  if (o0 + IG_ITEMS <= total) {
+    *reinterpret_cast<uint4*>(rs + o0) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    for (int j = 0; o0 + j < total; ++j)
+      rs[o0 + j] = (unsigned char)(w[j >> 2] >> (8 * (j & 3)));
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 ingest_rs_kernel(const unsigned char* __restrict__ seq,
                  const int* __restrict__ rec, int cap,
@@ -156,12 +173,32 @@ ingest_rs_kernel(const unsigned char* __restrict__ seq,
     if (o < total)
       w[j >> 2] |= (unsigned)ig_rs_byte(r, seq, c, o) << (8 * (j & 3));
   }
-  if (o0 + IG_ITEMS <= total) {
-    *reinterpret_cast<uint4*>(rs + o0) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else {
-    for (int j = 0; o0 + j < total; ++j)
-      rs[o0 + j] = (unsigned char)(w[j >> 2] >> (8 * (j & 3)));
+  ig_store_chunk(rs, o0, total, w);
+}
+
+// ingest_rs_kernel in join mode: each file's records as one RS
+__global__ void __launch_bounds__(THREADS)
+ingest_join_rs_kernel(const unsigned char* __restrict__ seq,
+                      const int* __restrict__ rec, int cap,
+                      const long long* __restrict__ starts, int nfiles,
+                      unsigned char* __restrict__ rs) {
+  const int nh = rec[(long long)cap * IG_REC];
+  if (nh == 0 || nh > cap) return;  // nothing, or the host runs again
+  const IgRecords r{rec, nh, rec[(long long)cap * IG_REC + 2]};
+  const IgFiles fl{starts, nfiles};
+  const long long total = ig_rs_off(r, nh);
+  const long long o0 =
+      ((long long)blockIdx.x * THREADS + threadIdx.x) * IG_ITEMS;
+  if (o0 >= total) return;
+  IgJoinCursor c = ig_join_seek(r, fl, o0);
+  unsigned w[IG_ITEMS / 4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < IG_ITEMS; ++j) {
+    const long long o = o0 + j;
+    if (o < total)
+      w[j >> 2] |= (unsigned)ig_join_byte(r, fl, seq, c, o) << (8 * (j & 3));
   }
+  ig_store_chunk(rs, o0, total, w);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -215,12 +252,14 @@ extern "C" long long andix_ingest_scratch_ints(long long m) {
 
 // raw: m bytes, 16-byte aligned; scratch: andix_ingest_scratch_ints(m)
 // int32, 16-byte aligned; seq: m bytes; rec: (cap + 1) * IG_REC int32;
-// rs: rs_cap >= 2 m bytes, 16-byte aligned.  The scratch's status words
-// and the table are zeroed here; both kernels run on `stream`.  Returns
-// cudaGetLastError.
+// rs: rs_cap >= 2 m bytes, 16-byte aligned; starts: nfiles file starts on
+// the card, ascending (join mode: one RS a file), or nfiles 0 (one RS a
+// record).  The scratch's status words and the table are zeroed here;
+// both kernels run on `stream`.  Returns cudaGetLastError.
 extern "C" int andix_ingest(const unsigned char* raw, long long m, int cap,
                             int* scratch, unsigned char* seq, int* rec,
                             unsigned char* rs, long long rs_cap,
+                            const long long* starts, int nfiles,
                             void* stream) {
   if (m <= 0) return 0;
   const long long tiles = ig_tiles(m);
@@ -235,8 +274,12 @@ extern "C" int andix_ingest(const unsigned char* raw, long long m, int cap,
                                                           rec, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ingest_rs_kernel<<<(unsigned)((rs_cap + RS_TILE - 1) / RS_TILE), THREADS,
-                     0, s>>>(seq, rec, cap, rs);
+  const unsigned rs_blocks = (unsigned)((rs_cap + RS_TILE - 1) / RS_TILE);
+  if (nfiles > 0)
+    ingest_join_rs_kernel<<<rs_blocks, THREADS, 0, s>>>(seq, rec, cap, starts,
+                                                        nfiles, rs);
+  else
+    ingest_rs_kernel<<<rs_blocks, THREADS, 0, s>>>(seq, rec, cap, rs);
   return (int)cudaGetLastError();
 }
 

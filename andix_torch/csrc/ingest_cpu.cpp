@@ -24,13 +24,14 @@ extern "C" long long andix_ingest_cpu_tiles(long long m, int tiny) {
   return (m + tile - 1) / tile;
 }
 
-// Same outputs as andix_ingest (seq, rec, rs), with agg_only and tiny in
-// place of the scratch and the stream; status_out receives each tile's
-// final status word.
+// Same outputs as andix_ingest (seq, rec, rs; starts and nfiles as
+// there, on the host), with agg_only and tiny in place of the scratch and
+// the stream; status_out receives each tile's final status word.
 extern "C" int andix_ingest_cpu(const unsigned char* raw, long long m,
                                 int cap, const unsigned char* agg_only,
                                 int tiny, unsigned char* seq, int* rec,
                                 unsigned char* rs, long long rs_cap,
+                                const long long* starts, int nfiles,
                                 int* status_out) {
   if (m <= 0) return 0;
   const int threads = tiny ? TINY_THREADS : KERNEL_THREADS;
@@ -84,10 +85,17 @@ extern "C" int andix_ingest_cpu(const unsigned char* raw, long long m,
   if (nh == 0 || nh > cap) return 0;
   const IgRecords r{rec, nh, rec[(long long)cap * IG_REC + 2]};
   const long long total = ig_rs_off(r, nh);
+  const IgFiles fl{starts, nfiles};
   for (long long o0 = 0; o0 < total && o0 < rs_cap; o0 += IG_ITEMS) {
-    IgRsCursor c = ig_rs_seek(r, o0);
-    for (long long o = o0; o < o0 + IG_ITEMS && o < total; ++o)
-      rs[o] = ig_rs_byte(r, seq, c, o);
+    if (nfiles > 0) {
+      IgJoinCursor c = ig_join_seek(r, fl, o0);
+      for (long long o = o0; o < o0 + IG_ITEMS && o < total; ++o)
+        rs[o] = ig_join_byte(r, fl, seq, c, o);
+    } else {
+      IgRsCursor c = ig_rs_seek(r, o0);
+      for (long long o = o0; o < o0 + IG_ITEMS && o < total; ++o)
+        rs[o] = ig_rs_byte(r, seq, c, o);
+    }
   }
   return 0;
 }

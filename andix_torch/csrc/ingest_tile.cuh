@@ -32,7 +32,9 @@
 // [K_r, K_{r+1}) of the compacted output.
 //
 // The RS pass writes each record's revcomp + '#' + forward + 0 at
-// 2 K_r + 2 r (sequence.catcomp's layout, one 0 after each record).
+// 2 K_r + 2 r (sequence.catcomp's layout, one 0 after each record); in
+// join mode each file's records joined by '!' as one RS, in the same
+// bytes (below).
 // The block text writes the int32 symbols of a joint block from its bytes
 // (backend.pad_symbols(layout.sym, padded_n)): the byte, 256 + s at
 // separator s (a 0 byte at ends[s]), pad_base + k past n.
@@ -449,6 +451,124 @@ IG_HD unsigned char ig_rs_byte(const IgRecords& r, const unsigned char* seq,
   if (local < len) return ig_revcomp(seq[k0 + len - 1 - local]);
   if (local == len) return '#';
   if (local <= 2 * len) return seq[k0 + local - len - 1];
+  return 0;
+}
+
+// ---- the RS pass in join mode -----------------------------------------
+//
+// Under -j the units are the files: file f owns the records whose headers
+// lie in [starts[f], starts[f + 1]) (the first file also those before
+// it).  Its records [r0, r1) join with one '!' between two records into
+// J = K_r1 - K_r0 + (r1 - r0) - 1 symbols, and its RS, revcomp + '#' +
+// joined + 0 (2 J + 2 bytes, '!' reversed to ';'), takes the RS bytes
+// [ig_rs_off(r0), ig_rs_off(r1)) that its records' RS take without -j.
+// Joined symbol h, counted in half-offsets from the buffer's start, lies
+// in the record q with the largest ig_rs_off(q) / 2 <= h: seq[K_q + h -
+// ig_rs_off(q) / 2], or '!' just past that record's kept bytes.
+
+struct IgFiles {
+  const long long* starts;  // each file's first raw byte, ascending
+  int n;
+};
+
+// the first record whose header is at or after raw byte p
+IG_HD int ig_record_at(const IgRecords& r, long long p) {
+  int lo = 0, hi = r.n;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (r.rec[(long long)mid * IG_REC] < p)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// file f's first record (r.n past the last file)
+IG_HD int ig_unit_first(const IgRecords& r, const IgFiles& fl, int f) {
+  if (f <= 0) return 0;
+  return f < fl.n ? ig_record_at(r, fl.starts[f]) : r.n;
+}
+
+// the file that owns record q
+IG_HD int ig_unit_of(const IgRecords& r, const IgFiles& fl, int q) {
+  const long long p = r.rec[(long long)q * IG_REC];
+  int lo = 0, hi = fl.n;  // the files that start at or before p
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (fl.starts[mid] <= p)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo > 0 ? lo - 1 : 0;
+}
+
+// A walk over one file's RS bytes: its records [r0, r1) and RS bytes
+// [u, unext); q the record of the last joined symbol read, whose
+// half-offsets are [lo_h, hi_h) (q < 0: not yet found).
+struct IgJoinCursor {
+  int r0, r1, q;
+  long long u, unext, lo_h, hi_h;
+};
+
+IG_HD IgJoinCursor ig_join_seek(const IgRecords& r, const IgFiles& fl,
+                                long long o) {
+  const int f = ig_unit_of(r, fl, ig_rs_record(r, o));
+  IgJoinCursor c;
+  c.r0 = ig_unit_first(r, fl, f);
+  c.r1 = ig_unit_first(r, fl, f + 1);
+  c.q = -1;
+  c.u = ig_rs_off(r, c.r0);
+  c.unext = ig_rs_off(r, c.r1);
+  c.lo_h = c.hi_h = 0;
+  return c;
+}
+
+// joined symbol h of the cursor's file, the cursor moved to its record
+IG_HD unsigned char ig_join_symbol(const IgRecords& r,
+                                   const unsigned char* seq, IgJoinCursor& c,
+                                   long long h) {
+  if (c.q < 0) {
+    int lo = c.r0, hi = c.r1 - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (ig_rs_off(r, mid) / 2 <= h)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    c.q = lo;
+    c.lo_h = ig_rs_off(r, lo) / 2;
+    c.hi_h = ig_rs_off(r, lo + 1) / 2;
+  }
+  while (h < c.lo_h && c.q > c.r0) {
+    --c.q;
+    c.hi_h = c.lo_h;
+    c.lo_h = ig_rs_off(r, c.q) / 2;
+  }
+  while (h >= c.hi_h && c.q + 1 < c.r1) {
+    ++c.q;
+    c.lo_h = c.hi_h;
+    c.hi_h = ig_rs_off(r, c.q + 1) / 2;
+  }
+  const long long local = h - c.lo_h;
+  return local < c.hi_h - c.lo_h - 1 ? seq[c.lo_h - c.q + local] : '!';
+}
+
+// RS byte o in join mode, the cursor moved to its file (seek it at o
+// first)
+IG_HD unsigned char ig_join_byte(const IgRecords& r, const IgFiles& fl,
+                                 const unsigned char* seq, IgJoinCursor& c,
+                                 long long o) {
+  if (o >= c.unext) c = ig_join_seek(r, fl, o);
+  const long long local = o - c.u;
+  if (local < 0) return 0;  // bytes before the first header own no RS
+  const long long j = (c.unext - c.u) / 2 - 1, h0 = c.u / 2;
+  if (local < j)
+    return ig_revcomp(ig_join_symbol(r, seq, c, h0 + j - 1 - local));
+  if (local == j) return '#';
+  if (local <= 2 * j) return ig_join_symbol(r, seq, c, h0 + local - j - 1);
   return 0;
 }
 

@@ -2,15 +2,18 @@
 is a card, the joint block's text and each subject index's text.
 
 ``read`` takes every named regular file that starts with ``>`` on the
-card (``card``: the backend resolves to a card and the run is not in join
-mode).  The files of a call are read whole into one pinned host buffer,
-each followed by a ``\\n``, and uploaded once; one launch of
-``csrc/ingest.cu`` parses, normalizes and counts them and writes every
-record's RS (``revcomp + '#' + forward``, then a 0) into one buffer, which
-comes back to pinned host memory in one copy.  ``IngestSeq.data`` and
-``IngestSeq.rs`` are views into it, and ``subject`` makes each subject
-from them and the record's G+C count, as ``sequence.subject_init`` does.
-The card's buffers are freed before ``read`` returns.
+card (``card``: the backend resolves to a card).  The files of a call are
+read whole into one pinned host buffer, each followed by a ``\\n``, and
+uploaded once; one launch of ``csrc/ingest.cu`` parses, normalizes and
+counts them and writes every record's RS (``revcomp + '#' + forward``,
+then a 0) into one buffer, which comes back to pinned host memory in one
+copy.  In join mode (``-j``) the RS pass writes one RS a file instead, its
+records joined by ``'!'`` as ``fasta.read_fasta_join`` joins them, in the
+bytes its records' RS take otherwise, and the file's sequence is named
+after the file as there.  ``IngestSeq.data`` and ``IngestSeq.rs`` are
+views into the buffer, and ``subject`` makes each subject from them and
+the G+C count, as ``sequence.subject_init`` does.  The card's buffers are
+freed before ``read`` returns.
 
 A file takes that path only where the card's record table proves it
 exact (``_accepted``): it starts with ``>``; every header line starts
@@ -19,12 +22,15 @@ with ``>`` at column 0, has a non-whitespace byte after it and ends in
 is a letter, ``-``, ``*`` or whitespace.  On such a file ``fasta.
 FastaStream``'s records are: the header's first word (the name), the rest
 of its line after the word's end (the comment), and the non-whitespace
-bytes up to the next header (the sequence).  Every other file, stdin, the
-CPU backend and join mode go to ``fasta.read_fasta``/``read_fasta_join``
-as they are, with their messages; nothing the card computed for a
+bytes up to the next header (the sequence).  Every other file, stdin and
+the CPU backend go to ``fasta.read_fasta`` (``read_fasta_join`` in join
+mode) as they are, with their messages; nothing the card computed for a
 refused file is used.  The files of each path are counted
-(``ingest.device_files``, ``ingest.host_files``); each file joined in
-join mode is one ``ingest.join`` span (``_read_join``).
+(``ingest.device_files``, ``ingest.host_files``).  In join mode the
+card's read of the files it joins is one ``ingest.join`` span
+(``_read_join_card``), which counts them in ``join.device_files``; each
+file joined on the host is one more (``_read_join``), and each subject
+one ``subjects.host`` span.
 
 ``block_layout`` is ``joint.build_block``'s layout without its zeroed
 copy: a view of the RS buffer where the block's subjects lie back to back
@@ -74,30 +80,40 @@ class IngestSeq(Seq):
 
     rs: np.ndarray = None
     gc_count: int = 0
+    joined: bool = False  # a file's records joined (join mode)
 
 
 def subject(seq: Seq, anchor_p_value: float) -> Subject:
     """``sequence.subject_init(seq, anchor_p_value)``, from the card's RS
     and G+C count for an ``IngestSeq``.  A subject the host makes is one
     ``subjects.host`` span (``symbols``: its length) and one count of
-    ``subjects.host_rs``; one from the card counts ``subjects.device_rs``."""
+    ``subjects.host_rs``; one from the card counts ``subjects.device_rs``,
+    and a joined one is a ``subjects.host`` span too (the host's part:
+    its G+C share and threshold), so that join mode's subjects are timed
+    on either read."""
     if not isinstance(seq, IngestSeq):
         with spans.span("subjects.host", symbols=len(seq.data)):
             spans.count("subjects.host_rs")
             return subject_init(seq, anchor_p_value)
     spans.count("subjects.device_rs")
+    if seq.joined:
+        with spans.span("subjects.host", symbols=len(seq.data)):
+            return _card_subject(seq, anchor_p_value)
+    return _card_subject(seq, anchor_p_value)
+
+
+def _card_subject(seq: IngestSeq, anchor_p_value: float) -> Subject:
     gc = seq.gc_count / len(seq.data)
     return Subject(rs=seq.rs, gc=gc, threshold=min_anchor_length(
         anchor_p_value, gc, len(seq.rs)))
 
 
 def card(ctx: Context) -> torch.device | None:
-    """The card this process reads its files on: None in join mode or
-    where ``--backend`` resolves to no card (the CLI reports that later,
-    where it always has).  Before a process group is joined, torchrun's
-    rank takes its own card, as ``device.resolve_devices`` will give it."""
-    if ctx.join:
-        return None
+    """The card this process reads its files on, in join mode as without
+    it: None where ``--backend`` resolves to no card (the CLI reports that
+    later, where it always has).  Before a process group is joined,
+    torchrun's rank takes its own card, as ``device.resolve_devices`` will
+    give it."""
     try:
         devices = resolve_devices(ctx.backend)
     except DeviceError:
@@ -113,9 +129,15 @@ def card(ctx: Context) -> torch.device | None:
 def read(file_names: list[str], ctx: Context,
          device: torch.device | None) -> list[Seq]:
     """Every file's sequences in order: the card's for the files it takes
-    on ``device`` (None: none), ``fasta.read_fasta`` (``read_fasta_join``
-    in join mode) for the others."""
-    taken = {} if device is None else read_records(file_names, device)
+    on ``device`` (None: none; in join mode one joined sequence a file),
+    ``fasta.read_fasta`` (``read_fasta_join`` in join mode) for the
+    others."""
+    if device is None:
+        taken = {}
+    elif ctx.join:
+        taken = _read_join_card(file_names, device)
+    else:
+        taken = read_records(file_names, device)
     seqs: list[Seq] = []
     for k, name in enumerate(file_names):
         if k in taken:
@@ -124,12 +146,32 @@ def read(file_names: list[str], ctx: Context,
             if any(r.non_acgt for r in recs):
                 ctx.non_acgt = True
             seqs.extend(IngestSeq(data=r.data, name=r.name, rs=r.rs,
-                                  gc_count=r.gc) for r in recs)
+                                  gc_count=r.gc, joined=ctx.join)
+                        for r in recs)
         else:
             spans.count("ingest.host_files")
             seqs.extend(_read_join(name, ctx) if ctx.join
                         else fasta.read_fasta(name, ctx))
     return seqs
+
+
+def _read_join_card(file_names: list[str], device: torch.device
+                    ) -> dict[int, list[Record]]:
+    """``read_records(file_names, device, True)`` in one ``ingest.join``
+    span: the card's read of the files it joins, with their ``records``
+    and joined ``bytes``, counted in ``join.device_files``,
+    ``join.records`` and ``join.joiners`` as ``_read_join`` counts a
+    file joined on the host."""
+    with spans.span("ingest.join") as sp:
+        taken = read_records(file_names, device, True)
+        if sp:
+            recs = [r for k in sorted(taken) for r in taken[k]]
+            records = sum(r.records for r in recs)
+            sp.set(records=records, bytes=sum(len(r.data) for r in recs))
+            spans.count("join.device_files", len(recs))
+            spans.count("join.records", records)
+            spans.count("join.joiners", records - len(recs))
+    return taken
 
 
 def _read_join(name: str, ctx: Context) -> list[Seq]:
@@ -156,6 +198,13 @@ class Record:
     rs: np.ndarray
     gc: int
     non_acgt: bool
+    records: int = 1  # the file's records joined into it (join mode)
+
+
+def _join_name(path: str) -> str:
+    """A joined file's sequence name, as ``fasta.read_fasta_join`` cuts
+    it: the basename up to its first ``.``."""
+    return os.path.basename(path).split(".", 1)[0]
 
 
 def _regular_size(name: str) -> int:
@@ -217,10 +266,11 @@ def host_buffer(nbytes: int, device: torch.device) -> torch.Tensor:
         return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
 
 
-def read_records(file_names: list[str], device: torch.device
-                 ) -> dict[int, list[Record]]:
+def read_records(file_names: list[str], device: torch.device,
+                 join: bool = False) -> dict[int, list[Record]]:
     """{file index: its records} for the files that ``device`` (a card,
-    or the CPU's plain version) takes; pinned host buffers for a card."""
+    or the CPU's plain version) takes (``join``: its one joined record,
+    named after the file); pinned host buffers for a card."""
     taken: dict[int, list[Record]] = {}
     for batch in _batches(file_names):
         host = host_buffer(sum(size + 1 for _, size in batch), device)
@@ -232,26 +282,36 @@ def read_records(file_names: list[str], device: torch.device
                 files.append((k, m, m + size))
                 m += size + 1
         if files:
-            taken.update(_ingest_batch(host[:m], files, device))
+            got = _ingest_batch(host[:m], files, device, join)
+            if join:
+                for k, recs in got.items():
+                    recs[0].name = _join_name(file_names[k])
+            taken.update(got)
     return taken
 
 
-def _ingest_batch(raw: torch.Tensor, files, device: torch.device
-                  ) -> dict[int, list[Record]]:
+def _ingest_batch(raw: torch.Tensor, files, device: torch.device,
+                  join: bool = False) -> dict[int, list[Record]]:
     """The records of the files in ``raw`` (a host uint8 tensor: each file
     at ``[start, end)`` of ``files``' (index, start, end), then a ``\\n``;
-    pinned for a card) that ``_accepted`` takes, by file index."""
+    pinned for a card) that ``_accepted`` takes, by file index; with
+    ``join``, each file's records joined into one, unnamed
+    (``read_records`` names it)."""
     m = raw.shape[0]
     dev_raw = spans.upload(raw, device)
+    starts = None
+    if join:
+        starts = spans.upload(torch.tensor([s for _, s, _ in files],
+                                           dtype=torch.int64), device)
     cap = max(64, m >> 12)
     while True:
-        seq, rec, rs = scan(dev_raw, cap)
+        seq, rec, rs = scan(dev_raw, cap, starts)
         table = spans.readback(rec).numpy()
         nh = int(table[cap, 0])
         if nh <= cap:
             break
         cap = nh  # more headers than rows: once more with room for all
-    del dev_raw, seq
+    del dev_raw, seq, starts
     rows = table[:nh].astype(np.int64)
     tot = table[cap].astype(np.int64)
     k0 = rows[:, 2]
@@ -271,6 +331,17 @@ def _ingest_batch(raw: torch.Tensor, files, device: torch.device
     for f, (k, _, end) in enumerate(files):
         mine = np.nonzero(owner == f)[0]
         if not _accepted(rows[mine], nonws[mine], bad[mine], end):
+            continue
+        if join:
+            # the file's RS starts where its first record's would
+            off = int(rs_off[mine[0]])
+            n = int(length[mine].sum()) + len(mine) - 1
+            out[k] = [Record(
+                name="", comment="",
+                data=rs_buf[off + n + 1: off + 2 * n + 1],
+                rs=rs_buf[off: off + 2 * n + 1], gc=int(gc[mine].sum()),
+                non_acgt=bool((nonws[mine] > length[mine]).any()),
+                records=len(mine))]
             continue
         recs = []
         for r in mine:
@@ -311,20 +382,28 @@ def _header(line: np.ndarray) -> tuple[str, str]:
 
 # ---- the ingest kernel and its plain version --------------------------
 
-def scan(raw: torch.Tensor, cap: int):
+def scan(raw: torch.Tensor, cap: int, starts: torch.Tensor | None = None):
     """(seq, rec, rs) of ``raw`` (uint8 [m]) with a record table of
     ``cap`` rows (``csrc/ingest_tile.cuh``): seq [m] holds the K kept
     bytes first; rec int32 [cap + 1, 6] the rows (header position, its
     line's end, K, G, R, V before it) and the totals row (headers, 0, K,
     G, R, V); rs [2 m] the 2 K + 2 headers bytes of the records' RS, when
-    the headers fit ``cap``.  The kernels on a card, the plain version on
-    the CPU."""
+    the headers fit ``cap``.  With ``starts`` (int64, ascending, on
+    ``raw``'s device: each file's first byte) the RS bytes are one RS a
+    file, its records joined by '!' (join mode).  The kernels on a card,
+    the plain version on the CPU."""
     if raw.dtype != torch.uint8 or raw.dim() != 1 or \
             not raw.is_contiguous():
         raise ValueError("ingest: raw must be contiguous 1-D uint8")
+    if starts is not None and (
+            starts.dtype != torch.int64 or starts.dim() != 1
+            or not starts.is_contiguous() or starts.device != raw.device
+            or starts.shape[0] == 0):
+        raise ValueError("ingest: starts must be contiguous 1-D int64 on "
+                         "raw's device")
     if raw.device.type == "cpu":
-        return scan_plain(raw, cap)
-    return _scan_cuda(raw, cap)
+        return scan_plain(raw, cap, starts)
+    return _scan_cuda(raw, cap, starts)
 
 
 def _excl(mask: torch.Tensor) -> torch.Tensor:
@@ -332,7 +411,8 @@ def _excl(mask: torch.Tensor) -> torch.Tensor:
     return c - mask.to(torch.int64)
 
 
-def scan_plain(raw: torch.Tensor, cap: int):
+def scan_plain(raw: torch.Tensor, cap: int,
+               starts: torch.Tensor | None = None):
     """The plain PyTorch version of ``scan``, on ``raw``'s device."""
     m, dev = raw.shape[0], raw.device
     x = raw.to(torch.int64)
@@ -376,6 +456,9 @@ def scan_plain(raw: torch.Tensor, cap: int):
         length = torch.cat([k0[1:], totals[:1]]) - k0
         off = 2 * k0 + 2 * torch.arange(nh, device=dev)
         total = 2 * kept.shape[0] + 2 * nh
+        if starts is not None:
+            rs[:total] = _join_rs_plain(kept, hpos, off, length, starts)
+            return seq, rec, rs
         o = torch.arange(total, device=dev)
         q = (torch.searchsorted(off, o, right=True) - 1).clamp(min=0)
         local = o - off[q]
@@ -389,7 +472,40 @@ def scan_plain(raw: torch.Tensor, cap: int):
     return seq, rec, rs
 
 
-def _scan_cuda(raw: torch.Tensor, cap: int):
+def _join_rs_plain(kept: torch.Tensor, hpos: torch.Tensor,
+                   off: torch.Tensor, length: torch.Tensor,
+                   starts: torch.Tensor) -> torch.Tensor:
+    """The RS bytes of ``scan_plain`` in join mode: file f's records
+    (headers ``hpos`` from ``starts[f]`` on, the first file's from 0)
+    joined by '!' as one RS in the bytes their RS ``off`` take."""
+    dev, nh = kept.device, off.shape[0]
+    bounds = torch.cat([off, off.new_tensor([2 * kept.shape[0] + 2 * nh])])
+    first = torch.cat([off.new_zeros(1), torch.searchsorted(hpos,
+                                                            starts[1:])])
+    u = bounds[first]
+    unext = bounds[torch.cat([first[1:], off.new_tensor([nh])])]
+    u, unext = u[unext > u], unext[unext > u]  # files with records
+    o = torch.arange(int(bounds[-1]), device=dev)
+    f = (torch.searchsorted(u, o, right=True) - 1).clamp(min=0)
+    local, j, h0 = o - u[f], (unext[f] - u[f]) // 2 - 1, u[f] // 2
+    rev = (local >= 0) & (local < j)
+    fwd = (local > j) & (local <= 2 * j)
+    h = torch.where(rev, h0 + j - 1 - local, h0 + local - j - 1)
+    q = (torch.searchsorted(off // 2, h, right=True) - 1).clamp(min=0)
+    lh = h - off[q] // 2
+    inner = (rev | fwd) & (lh < length[q])
+    sym = torch.full_like(o, BANG, dtype=torch.uint8)
+    sym[inner] = kept[(off[q] // 2 - q + lh)[inner]]
+    table = torch.from_numpy(_REVCOMP).to(dev)
+    out = torch.zeros(o.shape[0], dtype=torch.uint8, device=dev)
+    out[rev] = table[sym[rev].long()]
+    out[local == j] = ord("#")
+    out[fwd] = sym[fwd]
+    return out
+
+
+def _scan_cuda(raw: torch.Tensor, cap: int,
+               starts: torch.Tensor | None = None):
     m = raw.shape[0]
     dev = raw.device
     if raw.data_ptr() % 16:
@@ -404,20 +520,23 @@ def _scan_cuda(raw: torch.Tensor, cap: int):
         err = lib.andix_ingest(
             raw.data_ptr(), ctypes.c_int64(m), cap, scratch.data_ptr(),
             seq.data_ptr(), rec.data_ptr(), rs.data_ptr(),
-            ctypes.c_int64(rs.shape[0]), stream)
+            ctypes.c_int64(rs.shape[0]),
+            None if starts is None else starts.data_ptr(),
+            0 if starts is None else starts.shape[0], stream)
     kernels.check(err, "ingest")
     kernels.count_launch("ingest", dev)
     return seq[:m], rec, rs
 
 
 def scan_cpu_twin(raw: torch.Tensor, cap: int, tiny: bool = False,
-                  agg_only: torch.Tensor | None = None):
+                  agg_only: torch.Tensor | None = None,
+                  starts: torch.Tensor | None = None):
     """The kernels' bodies (``ingest_tile.cuh``) built for the host with
     g++, the scan's tiles in counter order: (seq, rec, rs, status), status
     being each tile's final status word (1 aggregate, 2 inclusive).
     ``tiny`` takes tiles of 256 bytes instead of the kernel's 16384;
     ``agg_only``, a bool [tiles] tensor (``scan_cpu_tiles``), marks tiles
-    that publish only their aggregate."""
+    that publish only their aggregate; ``starts`` as ``scan``'s."""
     m = raw.shape[0]
     tiles = scan_cpu_tiles(m, tiny)
     if agg_only is not None and (agg_only.dtype != torch.bool
@@ -432,7 +551,9 @@ def scan_cpu_twin(raw: torch.Tensor, cap: int, tiny: bool = False,
         raw.data_ptr(), ctypes.c_int64(m), cap,
         None if agg_only is None else agg_only.contiguous().data_ptr(),
         int(tiny), seq.data_ptr(), rec.data_ptr(), rs.data_ptr(),
-        ctypes.c_int64(rs.shape[0]), status.data_ptr())
+        ctypes.c_int64(rs.shape[0]),
+        None if starts is None else starts.contiguous().data_ptr(),
+        0 if starts is None else starts.shape[0], status.data_ptr())
     return seq, rec, rs, status
 
 

@@ -114,8 +114,9 @@ _SA_KEYS_ARGTYPES = ([_I, _P, _P, _P] + [ctypes.c_int64] * 3
 _SA_RERANK_ARGTYPES = [_I, ctypes.c_int64] + [_P] * 11 + [_I, _I, _P]
 # andix_ingest's (ingest.cu): the raw bytes and their count, the record
 # table's rows, the scratch, the kept bytes, the table, the RS buffer and
-# its size; the CUDA entry adds the stream.  andix_block_text's: the text
-# and n, the separator positions and their count, the first padding
+# its size, the file starts and their count (join mode; else 0); the CUDA
+# entry adds the stream.  andix_block_text's: the text and n, the
+# separator positions and their count, the first padding
 # symbol, the padded length, the symbols and the two counts
 _BLOCK_TEXT_ARGTYPES = ([_P, ctypes.c_int64, _P, _I, _I, ctypes.c_int64]
                         + [_P] * 2)
@@ -278,7 +279,7 @@ def _load_cuda():
     lib.andix_ingest_scratch_ints.argtypes = [ctypes.c_int64]
     lib.andix_ingest_scratch_ints.restype = ctypes.c_int64
     lib.andix_ingest.argtypes = [_P, ctypes.c_int64, _I, _P, _P, _P, _P,
-                                 ctypes.c_int64, _P]
+                                 ctypes.c_int64, _P, _I, _P]
     lib.andix_ingest.restype = _I
     lib.andix_block_text.argtypes = _BLOCK_TEXT_ARGTYPES + [_P]
     lib.andix_block_text.restype = _I
@@ -352,7 +353,7 @@ def _load_cpu_twin():
     lib.andix_ingest_cpu_tiles.argtypes = [ctypes.c_int64, _I]
     lib.andix_ingest_cpu_tiles.restype = ctypes.c_int64
     lib.andix_ingest_cpu.argtypes = [_P, ctypes.c_int64, _I, _P, _I, _P, _P,
-                                     _P, ctypes.c_int64, _P]
+                                     _P, ctypes.c_int64, _P, _I, _P]
     lib.andix_ingest_cpu.restype = _I
     lib.andix_block_text_cpu.argtypes = _BLOCK_TEXT_ARGTYPES
     lib.andix_block_text_cpu.restype = _I

@@ -96,19 +96,21 @@ LABELS = {
                 "schedule"),
     "sx.count": (lambda a: f"sx: host count from {a['events']} events",),
 }
-# host spans: every file's parse and normalize, one file's read in join
-# mode, the subjects' set-up, one subject the host makes, the padded
+# host spans: every file's parse and normalize, one file's host read in
+# join mode, the subjects' set-up, one subject the host makes, the padded
 # texts, the subject schedule's plan, one segmented-driver dispatch, one
 # worker thread; the FASTA read's counters of files read on the card and
-# on the host, and of the records and joiners of the files joined; the
-# subjects' counters of those made on the host and from the card; the
-# walk's counter of groups walked by the segmented driver; and the
-# subject indexes' counters of texts made on the device and on the host
+# on the host, of the files joined on the card, and of the records and
+# joiners of the files joined; the subjects' counters of those made on
+# the host and from the card; the walk's counter of groups walked by the
+# segmented driver; and the subject indexes' counters of texts made on
+# the device and on the host
 NAMES = frozenset(LABELS) | {"fasta.read", "ingest.join", "subjects",
                              "subjects.host", "joint.text", "sx.text",
                              "sx.plan", "walk.dispatch", "worker",
                              "ingest.device_files", "ingest.host_files",
                              "join.records", "join.joiners",
+                             "join.device_files",
                              "subjects.host_rs", "subjects.device_rs",
                              "walk.driver_native", "sx.text_device",
                              "sx.text_host"}

@@ -35,7 +35,13 @@ line each; any failed phase raises and the script exits non-zero:
    ``subject_init`` (names, sequences, RS, G+C, thresholds), the ingest
    kernels against the plain version (kept bytes, record table, RS) and
    ``block_text`` against ``pad_symbols`` on the 100,663,296-symbol joint
-   block, each timed beside its plain version and its byte bound;
+   block, each timed beside its plain version and its byte bound; the
+   same family as drafts of 150 contigs in join mode
+   (``phase_ingest_join``): read on the card against
+   ``fasta.read_fasta_join`` and ``subject_init``, the join ingest
+   against its plain version (kept bytes, record table, RS), timed, and
+   ``-j`` through the CLI with the card's read against the host's read,
+   byte for byte, with one ``ingest`` launch;
 4. one 1 Mbp subject's index built (hybrid: wide ranks, sampled-PLCP
    LCP) on the card and on the CPU: SA, LCP, words and cache equal; the
    build's levels and peak bytes per padded index symbol at 1 Mbp and
@@ -971,6 +977,111 @@ def phase_ingest(dev, tmp):
     return (ms, plain_ms, err, ib_ms), (bt_ms, bt_plain, bt_err, bb_ms)
 
 
+def _draft_70(name: str, data: np.ndarray, contigs: int, rng) -> bytes:
+    """A genome as a draft: ``contigs`` records ``<name>_c<i>`` cut at
+    random points, each in lines of 70 bases."""
+    cuts = np.sort(rng.choice(np.arange(1, len(data)), contigs - 1,
+                              replace=False))
+    return b"".join(_fasta_70(f"{name}_c{c}", piece)
+                    for c, piece in enumerate(np.split(data, cuts)))
+
+
+def phase_ingest_join(dev, tmp):
+    """The 8 x 5 Mbp family as drafts of 150 contigs, read on the card in
+    join mode (``ingest.read_records(..., True)``: one joined record a
+    file) against ``fasta.read_fasta_join`` and ``subject_init``; the
+    ingest in join mode (the scan, then ``ingest_join_rs_kernel``)
+    against its plain version, exactly, timed beside the same bytes'
+    per-record ingest and its byte bound; then ``-j`` through the CLI
+    with the card's read against the host's read, byte for byte, launch
+    counts set to 0 just before.  Returns (ms, plain ms, max error,
+    bound ms, the CLI's ``ingest`` launches)."""
+    from andix_torch import fasta, ingest
+    from andix_torch.runtime import Context
+    from andix_torch.sequence import subject_init
+
+    rng = np.random.default_rng(26)
+    paths = []
+    for name, data in make_family(8, 5_000_000):
+        # several dots: the joined sequence is named up to the first
+        path = os.path.join(tmp, f"{name}.draft.fa")
+        with open(path, "wb") as f:
+            f.write(_draft_70(name, data, 150, rng))
+        paths.append(path)
+    ctx = Context()
+    ctx.join = True
+    t0 = time.perf_counter()
+    host = [s for p in paths for s in fasta.read_fasta_join(p, ctx)]
+    host_s = time.perf_counter() - t0
+    subjects = [subject_init(s, 0.025) for s in host]
+    walls = []
+    for _ in range(2):  # the first call pins its host buffers
+        t0 = time.perf_counter()
+        got = ingest.read_records(paths, dev, True)
+        walls.append(time.perf_counter() - t0)
+    if sorted(got) != list(range(8)) or \
+            any(len(got[k]) != 1 or got[k][0].records != 150 for k in got):
+        raise AssertionError(f"ingest -j: files taken {sorted(got)}")
+    for s, sub, k in zip(host, subjects, range(8)):
+        r = got[k][0]
+        theirs = ingest.subject(ingest.IngestSeq(r.data, r.name, r.rs, r.gc),
+                                0.025)
+        if s.name != r.name or not np.array_equal(s.data, r.data) or \
+                not np.array_equal(sub.rs, theirs.rs) or \
+                (sub.gc, sub.threshold) != (theirs.gc, theirs.threshold):
+            raise AssertionError(f"ingest -j: file {s.name} differs")
+    say(f"ingest -j 8x5Mbp drafts of 150 contigs: read on the card "
+        f"{walls[1]:.4f} s, the first call {walls[0]:.4f} s, against the "
+        f"host join read {host_s:.4f} s; names, joined sequences, RS, G+C, "
+        f"thresholds equal")
+
+    files = [open(p, "rb").read() + b"\n" for p in paths]
+    blob = np.frombuffer(b"".join(files), np.uint8)
+    raw = torch.from_numpy(blob.copy()).to(dev)
+    starts = torch.tensor(np.cumsum([0] + [len(f) for f in files[:-1]]),
+                          dtype=torch.int64, device=dev)
+    cap = 2048
+    seq, rec, rs = ingest.scan(raw, cap, starts)
+    want = ingest.scan_plain(raw, cap, starts)
+    k, nh = int(want[1][cap, 2]), int(want[1][cap, 0])
+    total = 2 * k + 2 * nh
+    err = max_abs_err([seq[:k], rec, rs[:total]],
+                      [want[0][:k], want[1], want[2][:total]])
+    if err or nh != 8 * 150:
+        raise AssertionError(f"ingest -j kernel != plain: {err}, {nh} "
+                             f"records")
+    del seq, rec, rs, want
+    ms = cuda_ms(lambda: ingest.scan(raw, cap, starts), 20)
+    rec_ms = cuda_ms(lambda: ingest.scan(raw, cap), 20)
+    plain_ms = cuda_ms(lambda: ingest.scan_plain(raw, cap, starts), 3)
+    ib, ib_ms, _, _ = ingest_bound(blob.size, k, nh, total, 0, 0)
+    say(f"ingest -j kernels ({blob.size} raw bytes, {nh} records in 8 "
+        f"files, {k} kept, {total} RS bytes): scan + join RS {ms:.4f} ms, "
+        f"the same bytes' scan + per-record RS {rec_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {ib_ms:.4f} ms ({ib} B) = "
+        f"{100 * ib_ms / ms:.2f}%; equal")
+    del raw, starts
+    torch.cuda.empty_cache()
+
+    out, launches, _, _, _ = _cli_run(paths, "auto", tmp, "8x5Mbp drafts -j",
+                                      args=["-j"])
+    saved = ingest.card
+    ingest.card = lambda ctx: None  # the host's join read
+    try:
+        code_h, out_h = run_cli(["--backend", "cuda", "--progress=never",
+                                 "-m", "JC", "-j"] + paths)
+    finally:
+        ingest.card = saved
+    if (code_h, out_h) != (0, out):
+        raise AssertionError(f"-j with the card's read != the host's "
+                             f"read (exit {code_h}):\n{out}\n{out_h}")
+    if launches["ingest"] != 1:
+        raise AssertionError(f"-j: {launches['ingest']} ingest launches")
+    say(f"  -j with the card's read == the host's read, {len(out)} bytes; "
+        f"1 ingest launch")
+    return ms, plain_ms, err, ib_ms, launches["ingest"]
+
+
 def phase_rmq(lcps):
     """The range-min kernel against its plain build over the 8 x 1 and
     8 x 5 Mbp joint LCPs (``phase_plcp``'s), every array exactly; both
@@ -1163,11 +1274,11 @@ def phase_cli_parity(tmp):
         f"{len(out_c)} bytes, exit {code_c}")
 
 
-def _cli_run(paths, index, tmp, label, env=None):
-    """One CLI run of ``-m JC`` on the card under ``ANDIX_INDEX=index``
-    (and the variables in ``env``), launch counts set to 0 just before
-    and read just after; prints the wall, per-phase seconds, peak memory
-    and launches."""
+def _cli_run(paths, index, tmp, label, env=None, args=()):
+    """One CLI run of ``-m JC`` (and the options ``args``) on the card
+    under ``ANDIX_INDEX=index`` (and the variables in ``env``), launch
+    counts set to 0 just before and read just after; prints the wall,
+    per-phase seconds, peak memory and launches."""
     from andix_torch import kernels
 
     prof_path = os.path.join(tmp, f"prof_{label}.txt")
@@ -1180,7 +1291,7 @@ def _cli_run(paths, index, tmp, label, env=None):
         kernels.reset_launches()
         t0 = time.time()
         code, out = run_cli(["--backend", "cuda", "--progress=never", "-m",
-                             "JC"] + paths)
+                             "JC", *args] + paths)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(kernels.launches)
@@ -2322,6 +2433,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         ingest_t, text_t = phase_ingest(dev, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        join_t = phase_ingest_join(dev, tmp)
     phase_index_build(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli_parity(tmp)
@@ -2418,6 +2531,11 @@ def main() -> int:
          "launches": launches["ingest"], "max_abs_err": ingest_t[2],
          "ms": ingest_t[0], "plain_ms": ingest_t[1],
          "bound_ms": ingest_t[3], "bound_by": "bytes", "library_ms": None},
+        {"name": "ingest_join", "route": "cuda",
+         "source": "andix_torch/csrc/ingest.cu", "replaces": None,
+         "launches": join_t[4], "max_abs_err": join_t[2], "ms": join_t[0],
+         "plain_ms": join_t[1], "bound_ms": join_t[3], "bound_by": "bytes",
+         "library_ms": None},
         {"name": "block_text", "route": "cuda",
          "source": "andix_torch/csrc/ingest.cu", "replaces": None,
          "launches": launches["block_text"], "max_abs_err": text_t[2],

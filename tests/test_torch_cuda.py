@@ -1195,6 +1195,98 @@ def test_ingest_read_on_the_card_equals_the_host(cuda, tmp_path):
         assert (sa.gc, sa.threshold) == (sb.gc, sb.threshold)
 
 
+def _draft_files(n_genomes, length, contigs, seed):
+    """Each genome as one file of ``contigs`` records in 70-column lines,
+    some of them lower case or holding N runs, as raw bytes."""
+    rng = np.random.default_rng(seed)
+    base = NUCL[rng.integers(0, 4, length)]
+    files = []
+    for k in range(n_genomes):
+        hit = rng.random(length) < 0.01 * k
+        data = np.where(hit, NUCL[rng.integers(0, 4, length)], base)
+        cuts = np.sort(rng.choice(np.arange(1, length), contigs - 1,
+                                  replace=False))
+        recs = [_wrapped(f"g{k}_c{c}", piece)
+                for c, piece in enumerate(np.split(data, cuts))]
+        recs[1] = recs[1].lower()
+        recs[2] += b"NNNNNNNN\n"
+        files.append(b"".join(recs) + b"\n")
+    return files
+
+
+@pytest.mark.parametrize("kind", ["bytes", "drafts_8x5m"])
+def test_ingest_join_kernel_equals_plain(cuda, kind):
+    """The ingest in join mode (``ingest_join_rs_kernel`` after the scan)
+    against the plain version: random bytes of every class with random
+    file starts, and 8 x 5 Mbp drafts of 150 contigs a file: the kept
+    bytes, the table and every RS byte, in one ``ingest`` launch."""
+    rng = np.random.default_rng(26)
+    if kind == "bytes":
+        alphabet = np.frombuffer(b"ACGTacgtNn-*> \t\r\n\n1!\x00\xff",
+                                 np.uint8)
+        x = alphabet[rng.integers(0, len(alphabet), 300_007)]
+        x[0] = ord(">")
+        starts = np.unique(np.append(rng.integers(0, len(x), 40), 0))
+        cap = 1 << 14
+    else:
+        files = _draft_files(8, 5_000_000, 150, 26)
+        x = np.frombuffer(b"".join(files), np.uint8)
+        starts = np.cumsum([0] + [len(f) for f in files[:-1]])
+        cap = 2048
+    raw = torch.from_numpy(x.copy())
+    st = torch.from_numpy(starts.astype(np.int64))
+    before = kernels.launches["ingest"]
+    seq, rec, rs = ingest.scan(raw.to(cuda), cap, st.to(cuda))
+    assert kernels.launches["ingest"] == before + 1
+    want = ingest.scan_plain(raw.to(cuda), cap, st.to(cuda))
+    nh, k = int(want[1][cap, 0]), int(want[1][cap, 2])
+    assert nh <= cap
+    assert torch.equal(rec, want[1])
+    assert torch.equal(seq[:k], want[0][:k])
+    total = 2 * k + 2 * nh
+    assert torch.equal(rs[:total], want[2][:total])
+
+
+def test_ingest_join_read_on_the_card_equals_the_host(cuda, tmp_path):
+    """``ingest.read`` on the card in join mode against
+    ``fasta.read_fasta_join`` and ``subject_init``: one joined sequence a
+    file, named after it, with its RS, G+C and threshold; a refused file
+    (a digit) between them joined on the host; the joined texts back to
+    back in the RS buffer, so the joint text is a view."""
+    import contextlib
+    import io
+
+    from andix_torch import fasta
+    from andix_torch.runtime import Context
+
+    blobs = _draft_files(4, 200_000, 30, 27)
+    blobs.insert(2, blobs[2] + b">bad\nACGT1\n")
+    paths = []
+    for k, blob in enumerate(blobs):
+        p = tmp_path / f"g{k}.draft.fa"
+        p.write_bytes(blob)
+        paths.append(str(p))
+    ctx_h, ctx_d = Context(), Context()
+    ctx_h.join = ctx_d.join = True
+    err_h, err_d = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err_h):
+        want = [s for p in paths for s in fasta.read_fasta_join(p, ctx_h)]
+    with contextlib.redirect_stderr(err_d):
+        got = ingest.read(paths, ctx_d, cuda)
+    assert err_h.getvalue() == err_d.getvalue()
+    assert ctx_h.non_acgt == ctx_d.non_acgt
+    assert [type(s) is ingest.IngestSeq for s in got] == [
+        True, True, False, True, True]
+    for a, b in zip(want, got):
+        assert a.name == b.name and np.array_equal(a.data, b.data)
+        sa, sb = subject_init(a, 0.025), ingest.subject(b, 0.025)
+        assert np.array_equal(sa.rs, sb.rs)
+        assert (sa.gc, sa.threshold) == (sb.gc, sb.threshold)
+    layout = ingest.block_layout({0: got[0].rs, 1: got[1].rs}, {}, cuda)
+    assert layout.u8.base is not None and np.shares_memory(layout.u8,
+                                                           got[0].rs)
+
+
 @pytest.mark.parametrize("case", ["random", "one_segment", "unpadded",
                                   "joint_8x5m"])
 def test_block_text_kernel_equals_pad_symbols(cuda, case):

@@ -8,7 +8,9 @@ Each family is 4 genomes of 20-40 kbp from the benchmark's generator
 one file a genome) and read by the reference as andi's join mode reads it
 (``andi.read_join``).  Compared: every ordered pair's 16 counts and
 sequence length, the unrounded distances (the benchmark's
-``distance_gap`` and its limit), the PHYLIP text and the exit code."""
+``distance_gap`` and its limit), the PHYLIP text and the exit code; the
+drafts also with the card's read path (its plain version), which joins
+each file on the ingest's RS pass."""
 
 import contextlib
 import io
@@ -18,7 +20,9 @@ import sys
 import numpy as np
 import pytest
 
-from andix_torch import cli, model, pipeline, subject_pipeline
+import torch
+
+from andix_torch import cli, ingest, model, pipeline, subject_pipeline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -130,3 +134,21 @@ def test_port_equals_the_reference(families, key, schedule, monkeypatch):
     assert np.array_equal(got_len, seq_len)
     assert run.distance_gap(got_dist, dist) <= run.LIMITS["distance_gap"]
     assert (got_code, out) == (code, text)
+
+
+@pytest.mark.parametrize("schedule", ["joint", "subject"])
+@pytest.mark.parametrize("key", [k for k, f in FAMILIES.items()
+                                 if f[2][0] is not None])
+def test_port_with_the_card_read_equals_the_reference(families, key,
+                                                      schedule, monkeypatch):
+    """``test_port_equals_the_reference`` on the drafts with the files read
+    on the card's route (``ingest.card`` on the CPU: the plain version
+    joins each file's records); every file is taken there."""
+    taken, read = [], ingest.read_records
+    monkeypatch.setattr(ingest, "card", lambda ctx: torch.device("cpu"))
+    monkeypatch.setattr(ingest, "read_records",
+                        lambda *a: taken.append(read(*a)) or taken[-1])
+    test_port_equals_the_reference(families, key, schedule, monkeypatch)
+    (got,) = taken
+    assert sorted(got) == list(range(len(families[key][0])))
+    assert all(len(recs) == 1 for recs in got.values())

@@ -1,11 +1,13 @@
 """The FASTA ingest and the joint block's text (``andix_torch.ingest``),
-on the CPU: the ingest kernels' host twin against their plain version;
-``ingest.read`` through the plain version against ``fasta.read_fasta``
-and ``sequence.subject_init`` on fuzzed files, every malformed file on
-the host with today's message; ``block_text`` and ``block_layout``
-against ``pad_symbols`` and ``joint.build_block``; the counters; and the
-CLI with the card's read path on the CPU against the host's read, byte
-for byte."""
+on the CPU: the ingest kernels' host twin against their plain version,
+with and without join mode; ``ingest.read`` through the plain version
+against ``fasta.read_fasta`` and ``sequence.subject_init`` on fuzzed
+files, every malformed file on the host with today's message; in join
+mode through the plain version and the twin against
+``fasta.read_fasta_join``; ``block_text`` and ``block_layout`` against
+``pad_symbols`` and ``joint.build_block``; the counters; and the CLI
+with the card's read path on the CPU against the host's read, byte for
+byte, with and without ``-j``."""
 
 import collections
 import contextlib
@@ -19,7 +21,7 @@ from andix_torch import cli, fasta, ingest, spans
 from andix_torch.esa import joint
 from andix_torch.esa.backend import bucket, pad_symbols
 from andix_torch.runtime import Context
-from andix_torch.sequence import catcomp, normalize, subject_init
+from andix_torch.sequence import catcomp, join, normalize, subject_init
 
 torch.set_num_threads(2)
 NUCL = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -108,6 +110,137 @@ def test_read_equals_the_host_read_on_fuzzed_files(tmp_path, seed):
                 sa, sb = subject_init(a, 0.025), ingest.subject(b, 0.025)
                 assert np.array_equal(sa.rs, sb.rs)
                 assert (sa.gc, sa.threshold) == (sb.gc, sb.threshold)
+
+
+def _twin_scan(raw, cap, starts=None):
+    return ingest.scan_cpu_twin(raw, cap, False, None, starts)[:3]
+
+
+def _host_join_read(paths):
+    ctx, err = Context(), io.StringIO()
+    ctx.join = True
+    with contextlib.redirect_stderr(err):
+        seqs = [s for p in paths for s in fasta.read_fasta_join(p, ctx)]
+    return seqs, ctx, err.getvalue()
+
+
+def _card_join_read(paths):
+    ctx, err = Context(), io.StringIO()
+    ctx.join = True
+    with contextlib.redirect_stderr(err):
+        seqs = ingest.read(paths, ctx, CPU)
+    return seqs, ctx, err.getvalue()
+
+
+# join-mode files by name: several records with lower case and N runs and
+# one that keeps no ACGT byte ('!!' in the joined text), one record (no
+# joiner), a file the gate refuses (an empty name: the host's message and
+# the records before it), names with no dot, several dots, a leading dot
+JOIN_FILES = {
+    "multi.fa": b">a x\nACGTacgtNN\nnnGG\n>b\nNNNN\n>c y z\nTTGCA\n",
+    "one_record": b">one\nACGTTTGCA\n",
+    "refused.fa": b">q\nACGTT\n>\nAC\n",
+    "a.b.c.fa": b">z\nNNNN\n>y\nccccNNNNtt\n>x\nA\n",
+    ".hidden.fa": b">h\nGATTACA\n>i\nacgtRYacgt\n",
+}
+
+
+@pytest.mark.parametrize("route", ["plain", "twin"])
+@pytest.mark.parametrize("seed", range(3))
+def test_join_read_equals_the_host_join_read(tmp_path, monkeypatch, route,
+                                             seed):
+    """Join mode (``ctx.join``), several files a call, in shuffled order
+    among fuzzed files of 1-4 records: every file the gate takes is one
+    ``IngestSeq`` whose name, joined sequence, RS, G+C and threshold are
+    ``fasta.read_fasta_join`` + ``subject_init``'s; the refused file keeps
+    the host's path, its message and its place; the non-ACGT flag is the
+    host's.  Through the plain version and the kernels' host twin."""
+    if route == "twin":
+        monkeypatch.setattr(ingest, "scan", _twin_scan)
+    rng = np.random.default_rng(300 + seed)
+    files = dict(JOIN_FILES)
+    for k in range(4):
+        files[f"fuzz{k}.x.fa"] = _fuzz_file(rng)
+    order = rng.permutation(len(files))
+    names = [list(files)[i] for i in order]
+    paths = []
+    for name in names:
+        p = tmp_path / name
+        p.write_bytes(files[name])
+        paths.append(str(p))
+    want, ctx_h, err_h = _host_join_read(paths)
+    got, ctx_d, err_d = _card_join_read(paths)
+    assert "refused.fa: Empty name on line 3." in err_h
+    assert (err_d, ctx_d.non_acgt) == (err_h, ctx_h.non_acgt)
+    assert [type(s) is ingest.IngestSeq for s in got] == [
+        n != "refused.fa" for n in names]
+    assert [s.name for s in got] == [s.name for s in want]
+    assert {"multi", "one_record", "a", ""} <= {s.name for s in got}
+    for a, b in zip(want, got):
+        assert np.array_equal(a.data, b.data), a.name
+        sa, sb = subject_init(a, 0.025), ingest.subject(b, 0.025)
+        assert np.array_equal(sa.rs, sb.rs)
+        assert (sa.gc, sa.threshold) == (sb.gc, sb.threshold)
+    joined = {s.name: s.data.tobytes() for s in got}
+    assert joined["multi"] == b"ACGTACGTGG!!TTGCA"
+    assert joined["a"] == b"!CCCCTT!A"
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+@pytest.mark.parametrize("seed", range(3))
+def test_twin_equals_plain_in_join_mode(seed, tiny):
+    """The RS pass in join mode, host twin against plain version, on
+    random bytes of every class with random file starts (ascending, the
+    first at 0 or not, some owning no header): the kept bytes, the table
+    and every RS byte."""
+    rng = np.random.default_rng(200 + seed)
+    alphabet = np.frombuffer(b"ACGTacgtNn-*> \t\r\n\n\n1!\x00\xff", np.uint8)
+    for trial in range(8):
+        m = int(rng.integers(1, 60_000))
+        x = alphabet[rng.integers(0, len(alphabet), m)]
+        if trial % 2:
+            x[0] = ord(">")
+        raw = torch.from_numpy(x)
+        cap = int(rng.integers(1, 400))
+        cut = rng.integers(0, m, int(rng.integers(1, 12)))
+        if trial % 4 != 3:
+            cut = np.append(cut, 0)
+        starts = torch.from_numpy(np.unique(cut).astype(np.int64))
+        seq, rec, rs, _ = ingest.scan_cpu_twin(raw, cap, tiny, None, starts)
+        want = ingest.scan_plain(raw, cap, starts)
+        assert torch.equal(rec, want[1])
+        k, nh = int(rec[cap, 2]), int(rec[cap, 0])
+        assert torch.equal(seq[:k], want[0][:k])
+        if nh <= cap:
+            total = 2 * k + 2 * nh
+            assert torch.equal(rs[:total], want[2][:total])
+
+
+def test_plain_join_scan_of_files_in_lines():
+    """Three files of contigs in 70-column lines, one RS a file: each is
+    ``catcomp`` of ``sequence.join`` of its normalized records, followed
+    by a 0, and starts where its first record's RS would."""
+    rng = np.random.default_rng(4)
+    lens = [(1, 69, 70), (71,), (10_000, 0, 3)]
+    blobs, joins = [], []
+    for f, group in enumerate(lens):
+        recs = [NUCL[rng.integers(0, 4, n)] for n in group]
+        blobs.append(b"".join(
+            b">f%dc%d\n" % (f, k) + (b"\n".join(
+                s[j: j + 70].tobytes() for j in range(0, len(s), 70))
+                or b"NN") + b"\n" for k, s in enumerate(recs)) + b"\n")
+        joins.append(join(recs))
+    raw = np.frombuffer(b"".join(blobs), np.uint8).copy()
+    starts = np.cumsum([0] + [len(b) for b in blobs[:-1]])
+    seq, rec, rs = ingest.scan_plain(torch.from_numpy(raw), 8,
+                                     torch.from_numpy(starts))
+    off = 0
+    for j in joins:
+        want = catcomp(j)
+        assert np.array_equal(rs[off: off + len(want)].numpy(), want)
+        assert int(rs[off + len(want)]) == 0
+        off += len(want) + 1
+    assert off == 2 * int(rec[8, 2]) + 2 * int(rec[8, 0])
 
 
 GOOD = b">g1 first\nACGTACGTAC\nGGTT\n"
@@ -292,22 +425,80 @@ def test_counters_count_each_file(tmp_path, monkeypatch):
                       {"ingest.host_files": 3}]
 
 
-def test_card_is_none_without_a_card_or_in_join_mode():
+def _request_counts(req):
+    """The request's ``ingest.`` and ``join.`` counters over all its spans
+    (the host path counts its joins in each ``ingest.join`` span)."""
+    out = collections.Counter()
+    for s in req["spans"]:
+        out.update({k: v for k, v in s["counts"].items()
+                    if k.startswith(("ingest.", "join."))})
+    return dict(out)
+
+
+def test_join_counters_count_each_file(tmp_path, monkeypatch):
+    """In join mode each file joined on the card counts in
+    ``join.device_files`` and ``ingest.device_files``, each joined on the
+    host is one ``ingest.join`` span and counts in ``ingest.host_files``,
+    and the card's read of its files is one ``ingest.join`` span more,
+    which counts its files in ``join.device_files``;
+    ``join.records`` and ``join.joiners`` are the host path's."""
+    monkeypatch.setenv("ANDIX_PROF_FILE", str(tmp_path / "phases.txt"))
+    monkeypatch.setattr(spans, "REQUESTS", collections.deque(maxlen=64))
+    paths = _write(tmp_path, [JOIN_FILES["multi.fa"], b">x\nAC1\n>y\nA\n",
+                              JOIN_FILES["one_record"]])
+    for device in (CPU, None):
+        ctx = Context()
+        ctx.join = True
+        with spans.request(), contextlib.redirect_stderr(io.StringIO()):
+            with spans.span("fasta.read"):
+                ingest.read(paths, ctx, device)
+    card, host = (_request_counts(r) for r in list(spans.REQUESTS)[-2:])
+    assert card == {"ingest.device_files": 2, "ingest.host_files": 1,
+                    "join.device_files": 2, "join.records": 6,
+                    "join.joiners": 3}
+    assert host == {"ingest.host_files": 3, "join.records": 6,
+                    "join.joiners": 3}
+    joins = [[s for s in r["spans"] if s["name"] == "ingest.join"]
+             for r in list(spans.REQUESTS)[-2:]]
+    assert [len(j) for j in joins] == [2, 3]
+    # the card's read of its two files is the first span, and counts them
+    assert joins[0][0]["counts"]["join.device_files"] == 2
+    assert ["join.device_files" in s["counts"]
+            for j in joins for s in j] == [True] + [False] * 4
+
+
+def test_card_is_none_without_a_card_and_join_mode_resolves_it_alike(
+        monkeypatch):
+    """No card for the CPU or JAX backends; ``-j`` resolves the card as a
+    call without it does, a card included."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     ctx = Context()
+    for backend in ("cpu", "jax", "auto"):
+        ctx.backend = backend
+        alone = ingest.card(ctx)
+        ctx.join = True
+        assert ingest.card(ctx) == alone
+        ctx.join = False
     ctx.backend = "cpu"
     assert ingest.card(ctx) is None
     ctx.backend = "jax"
     assert ingest.card(ctx) is None
+    cuda = torch.device("cuda", 0)
+    monkeypatch.setattr(ingest, "resolve_devices", lambda backend: [cuda])
     ctx.backend, ctx.join = "auto", True
-    assert ingest.card(ctx) is None
+    assert ingest.card(ctx) == cuda
 
 
-@pytest.mark.parametrize("flags", [[], ["-l"], ["-v", "-m", "Kimura"]])
+@pytest.mark.parametrize("flags", [[], ["-l"], ["-v", "-m", "Kimura"],
+                                   ["-j"]])
 def test_cli_with_the_card_read_prints_the_host_bytes(
         tmp_path, monkeypatch, capfd, flags):
     """The CLI with the card's read path (its plain version) against the
     host's read: stdout, stderr and exit code byte for byte, on a family
-    with a lower-case, N-holding file and a refused one."""
+    with a lower-case, N-holding file and a refused one; under ``-j``
+    each file's genome is cut into contigs, and the card's path counts
+    the files it joined and the records and joiners the host's counts."""
+    join = "-j" in flags
     rng = np.random.default_rng(8)
     base = NUCL[rng.integers(0, 4, 3000)]
     blobs = []
@@ -316,19 +507,37 @@ def test_cli_with_the_card_read_prints_the_host_bytes(
                         NUCL[rng.integers(0, 4, 3000)], base).tobytes()
         if k == 2:
             data = data[:1000].lower() + b"NNRY" + data[1000:]
-        blobs.append(b">g%d sample %d\n" % (k, k) + b"\n".join(
-            data[j: j + 60] for j in range(0, len(data), 60)) + b"\n")
+        if not join:
+            blobs.append(b">g%d sample %d\n" % (k, k) + b"\n".join(
+                data[j: j + 60] for j in range(0, len(data), 60)) + b"\n")
+            continue
+        cuts = [0, 300 * k + 100, 1800, len(data)]
+        blobs.append(b"".join(
+            b">g%dc%d sample %d\n" % (k, c, k) + b"\n".join(
+                data[a: b][j: j + 60] for j in range(0, b - a, 60)) + b"\n"
+            for c, (a, b) in enumerate(zip(cuts, cuts[1:]))))
     blobs.append(b">g4\n" + base[:2500].tobytes() + b"!\n")
     paths = _write(tmp_path, blobs)
     args = ["--backend", "cpu", "--progress=never"] + flags + paths
+    monkeypatch.setenv("ANDIX_PROF_FILE", str(tmp_path / "phases.txt"))
+    monkeypatch.setattr(spans, "REQUESTS", collections.deque(maxlen=64))
     code_h = cli.main(args)
     host = capfd.readouterr()
     monkeypatch.setattr(ingest, "card", lambda ctx: CPU)
-    monkeypatch.setenv("ANDIX_PROF_FILE", str(tmp_path / "phases.txt"))
-    monkeypatch.setattr(spans, "REQUESTS", collections.deque(maxlen=64))
     code_d = cli.main(args)
     card = capfd.readouterr()
     assert (code_d, card.out, card.err) == (code_h, host.out, host.err)
-    counts = [_files(s["counts"]) for s in spans.REQUESTS[-1]["spans"]
-              if s["name"] == "fasta.read"]
-    assert counts == [{"ingest.device_files": 4, "ingest.host_files": 1}]
+    host_counts, card_counts = (_request_counts(r)
+                                for r in list(spans.REQUESTS)[-2:])
+    if not join:
+        assert (host_counts, card_counts) == (
+            {"ingest.host_files": 5},
+            {"ingest.device_files": 4, "ingest.host_files": 1})
+        return
+    assert host_counts["ingest.host_files"] == 5
+    assert card_counts == {"ingest.device_files": 4, "ingest.host_files": 1,
+                           "join.device_files": 4,
+                           "join.records": host_counts["join.records"],
+                           "join.joiners": host_counts["join.joiners"]}
+    assert (host_counts["join.records"], host_counts["join.joiners"]) == (
+        4 * 3 + 2, 4 * 2 + 1)

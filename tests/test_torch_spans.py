@@ -354,10 +354,56 @@ def test_one_record_files_on_the_card_route_open_neither(traced, tmp_path,
     assert _counted(req, "ingest.device_files") == 3
 
 
+def test_join_files_on_the_card_route_open_neither(traced, tmp_path,
+                                                   monkeypatch):
+    """Under ``-j`` with the files read on the card's route (its plain
+    version here), the host opens neither a per-file join read nor a
+    host-made RS: the card's read of the three files is one ``ingest.join``
+    span inside ``fasta.read`` (the files' ``records`` and joined
+    ``bytes``), which counts them in ``join.device_files`` and their
+    records and joiners as the host path counts them; each subject, its
+    RS the card's, is one ``subjects.host`` span inside ``subjects`` (the
+    host's part) and counts in ``subjects.device_rs``.  The readers of
+    ``join.read_s``, ``subjects.host_s`` and ``join.device_share`` read
+    them."""
+    from andix_torch import ingest
+    from portbench.run import ROOT, load_metric
+
+    paths = _drafts(tmp_path)
+    plain = _cli(["-j"] + paths)
+    monkeypatch.setattr(ingest, "card", lambda ctx: torch.device("cpu"))
+    assert _cli(["-j"] + paths) == plain and plain[0] == 0
+    req = spans.REQUESTS[-1]
+    by_name = {}
+    for s in req["spans"]:
+        by_name.setdefault(s["name"], []).append(s)
+    (read,), (subjects,) = by_name["fasta.read"], by_name["subjects"]
+    (join,) = by_name["ingest.join"]
+    assert join["parent"] == read["id"]
+    assert join["attrs"] == {"records": 12, "bytes": 18000 + 12 - 3}
+    assert {k: v for k, v in join["counts"].items()
+            if k.startswith("join.")} == {
+        "join.device_files": 3, "join.records": 12, "join.joiners": 9}
+    hosts = by_name["subjects.host"]
+    assert [s["attrs"]["symbols"] for s in hosts] == [6000, 6003, 6006]
+    assert all(s["parent"] == subjects["id"] for s in hosts)
+    assert _counted(req, "join.device_files") == 3
+    assert _counted(req, "ingest.device_files") == 3
+    assert _counted(req, "join.records") == 12
+    assert _counted(req, "join.joiners") == 9
+    assert _counted(req, "subjects.device_rs") == 3
+    assert _counted(req, "subjects.host_rs") == 0
+    record = {"phase_matrices": [{"wall_s": 1.0, "phases": []}]}
+    for name in ("join.read_s", "subjects.host_s"):
+        got = load_metric(ROOT, name)(record)
+        assert got is not None and got > 0, name
+    assert load_metric(ROOT, "join.device_share")(record) == 1.0
+
+
 def test_the_join_and_subject_names_are_known():
     """The new spans and counters are named in ``NAMES``, and none of
     them is a phase with a line of its own."""
     new = {"ingest.join", "subjects.host", "join.records", "join.joiners",
-           "subjects.host_rs", "subjects.device_rs"}
+           "join.device_files", "subjects.host_rs", "subjects.device_rs"}
     assert new <= spans.NAMES
     assert not new & set(spans.LABELS)
